@@ -13,14 +13,24 @@ checkout at first use. Phases, each printing one JSON line:
            the card, on the same inputs, exactly (tolerance 0: every output
            is an integer): the FM ping-pong kernel on a read mix over a
            1 Mbp genome (with forced overflow and step-budget cases, and
-           64 lanes held against the host oracle), the wavefront DP kernel
-           at the call stage's buckets (CIGARs held against the host DP);
-  run      the main path, ``cli run --engine fm``, on a seed-pinned 40 Mbp
-           diploid sample (the sample of tools/chr_scale.py, simulated
-           with the port's own simulator), then the host engines
-           (``--no-device``) on the same index and smoothed BAM: the two
+           64 lanes held against the host oracle); the one-shot anchor
+           kernel on the anchor read mix and 512 long reads over another
+           1 Mbp genome (forced overflow, round-limit, overlap 0 and
+           heavy-k-mer cases; 64 lanes against the host oracle); the pool
+           kernel on a stream longer than its lane count, and against the
+           one-shot kernel under the same per-lane budget; the wavefront DP
+           kernel at the call stage's buckets (CIGARs against the host DP);
+  run      the main path, ``cli run`` with the default engine choice, on a
+           seed-pinned 40 Mbp diploid sample (the sample of
+           tools/chr_scale.py, simulated with the port's own simulator):
+           at 80M symbols it builds anchor tables and takes the narrow
+           anchor engine through the pool. Then, on the same index, anchor
+           tables and smoothed BAM, the one-shot anchor engine
+           (``--engine anchor --no-pool``), the FM engine (``--engine
+           fm``) and the host engines (``--no-device``): the four
            specifics.txt and VCF files must be identical, and recall and
-           precision are scored against the planted SVs;
+           precision are scored against the planted SVs. Each run's kernel
+           launches are counted from 0;
   timing   each kernel and its plain version timed with CUDA events on the
            inputs the main path gave it, and the least time the card could
            take for the same work.
@@ -63,6 +73,12 @@ SCALAR_OPS_PER_S = 67e12
 # capture)
 OPS_PER_RANK_STEP = 32 * 6 + 8
 OPS_PER_DP_CELL = 40
+# an anchor round's state machine outside its loops (mode decode, row and
+# column offsets, the table-row dispatch, resolution, restart and state
+# updates: ~60 integer operations), and per symbol a verify round compares
+# two symbol fetches, the compare and the loop test
+OPS_PER_ANCHOR_ROUND = 60
+OPS_PER_COMPARED_SYMBOL = 4
 
 # the run phase's sample: tools/chr_scale.py at its defaults, no cut
 GENOME_MBP = 40                 # one chromosome, 80M two-strand symbols
@@ -265,6 +281,155 @@ def check_pingpong(rng) -> dict:
             "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
+def anchor_mix(enc: np.ndarray, rng, n: int = 48, L: int = 300) -> list:
+    """The read mix of tests/test_anchor_jax.py (nt6): clean, mutated,
+    inserted, reverse-complement, random and N-containing reads, plus
+    short and edge reads and one exact 500-symbol read."""
+    from svdss_tpu_torch.utils.seq import revcomp_nt6
+    out = []
+    for i in range(n):
+        s = int(rng.integers(0, len(enc) - L))
+        r = enc[s:s + L].copy()
+        kind = i % 6
+        if kind == 1:
+            for _ in range(4):
+                r[rng.integers(0, L)] = rng.integers(1, 5)
+        elif kind == 2:
+            at = int(rng.integers(50, L - 50))
+            r = np.concatenate([r[:at], rng.integers(1, 5, 30)
+                                .astype(np.uint8), r[at:]])
+        elif kind == 3:
+            r = revcomp_nt6(r)
+            r[rng.integers(0, L)] = rng.integers(1, 5)
+        elif kind == 4:
+            r = rng.integers(1, 5, L).astype(np.uint8)
+        elif kind == 5:
+            r[rng.integers(0, L)] = 5
+        out.append(r)
+    return out + [enc[:5].copy(), enc[-7:].copy(),
+                  rng.integers(1, 5, 3).astype(np.uint8),
+                  enc[100:101].copy(), enc[200:700].copy()]
+
+
+ANCHOR_FIELDS = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
+
+
+def check_anchor(rng) -> list:
+    """K3 and K4 against their plain versions (all fields and the work
+    counts), K4 against K3 under the same per-lane budget, and 64
+    complete K3 lanes against the host oracle."""
+    from svdss_tpu_torch.index.fmd import build_index, genome_text
+    from svdss_tpu_torch.ops import anchor_device, anchor_pool
+    from svdss_tpu_torch.ops.anchor import build_anchor_index
+    from svdss_tpu_torch.ops.pingpong import pack_reads
+    from svdss_tpu_torch.ops.pingpong_host import ping_pong_search
+    from svdss_tpu_torch.pipeline.search import _bucket_len
+    from svdss_tpu_torch.utils.seq import encode_nt6
+
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, 1_000_000))
+    chroms = {"g": g}
+    dev, params = anchor_device.build_device_anchor(
+        build_anchor_index(genome_text(chroms)), "cuda")
+    enc = anchor_mix(encode_nt6(g), rng) + [
+        encode_nt6(r) for r in long_reads(g, rng, 512)]
+    L = _bucket_len(max(len(e) for e in enc))
+    cap = max(128, L // 16)             # the one-shot search stage's cap
+    # a repeat-rich genome (a 400 bp unit 200 times in 200 kb of random
+    # sequence) with cmax 4: heavy k-mers send lanes to the host
+    unit = "".join("ACGT"[i] for i in rng.integers(0, 4, 400))
+    rg = unit * 200 + "".join("ACGT"[i] for i in rng.integers(0, 4,
+                                                              200_000))
+    rdev, rparams = anchor_device.build_device_anchor(
+        build_anchor_index(genome_text({"r": rg}), cmax=4), "cuda")
+    renc = anchor_mix(encode_nt6(rg), rng, n=96, L=2000)
+    cases = []
+
+    def compare(name, d, p, encs, **kw):
+        seqs, lens = pack_reads(encs, pad_to=L, device="cuda")
+        work = torch.zeros(4, dtype=torch.int64, device="cuda")
+        before = anchor_device.launches
+        got = anchor_device.batch_search_anchor(d, p, seqs, lens, work=work,
+                                                **kw)
+        torch.cuda.synchronize()
+        if anchor_device.launches != before + 1:
+            raise RuntimeError("batch_search_anchor did not launch K3")
+        plain_work = torch.zeros_like(work)
+        want = anchor_device.batch_search_anchor_plain(
+            d, p, seqs, lens, kw["cap"], kw.get("max_rounds")
+            or anchor_device.default_max_rounds(L + 1),
+            kw.get("overlap", -1), kw.get("budget"), plain_work)
+        err = max_abs_diff([getattr(got, f) for f in ANCHOR_FIELDS]
+                           + [work], [getattr(want, f) for f in
+                                      ANCHOR_FIELDS] + [plain_work])
+        cases.append({"case": name, "lanes": len(encs), "L": L,
+                      "cap": kw["cap"], "max_abs_err": err,
+                      "overflow": int(got.overflow.sum()),
+                      "incomplete": int(got.incomplete.sum()),
+                      "iters": int(got.iters),
+                      "work": dict(zip(anchor_device.WORK_FIELDS,
+                                       work.tolist()))})
+        return got
+
+    res = compare("anchor mix + 512 long reads", dev, params, enc, cap=cap)
+    compare("cap=2 overflow", dev, params, enc[:64], cap=2)
+    compare("max_rounds=200 incomplete", dev, params, enc[:64], cap=cap,
+            max_rounds=200)
+    compare("overlap=0", dev, params, enc[:64], cap=cap, overlap=0)
+    compare("repeats, cmax=4", rdev, rparams, renc, cap=cap)
+    if not cases[-1]["incomplete"]:
+        raise RuntimeError("the heavy-k-mer case sent no lane to the host")
+
+    # 64 complete lanes against the host oracle: the shortest ones
+    index = build_index(chroms)
+    n_sfs = res.n_sfs.cpu().numpy()
+    qs, ln = res.qs.cpu().numpy(), res.length.cpu().numpy()
+    done = ~(res.overflow | res.incomplete).cpu().numpy()
+    order = sorted((i for i in range(len(enc)) if done[i]),
+                   key=lambda i: len(enc[i]))[:64]
+    oracle_bad = 0
+    for i in order:
+        k = int(n_sfs[i])
+        got = list(zip(qs[i, :k].tolist(), ln[i, :k].tolist()))
+        oracle_bad += got != ping_pong_search(index, enc[i])
+
+    # K4 on a stream longer than its lanes (64), mixed lengths; against
+    # its plain version, and against K3 under the same per-lane budget
+    syms, offs, lens = (torch.from_numpy(a).cuda() for a in
+                        anchor_pool.pack_chunk(enc))
+    work = torch.zeros(4, dtype=torch.int64, device="cuda")
+    before = anchor_pool.launches
+    got4 = anchor_pool.pool_search(dev, params, syms, offs, lens, Lp1=L + 1,
+                                   cap=cap, lanes=64, work=work)
+    torch.cuda.synchronize()
+    if anchor_pool.launches != before + 1:
+        raise RuntimeError("pool_search did not launch K4")
+    plain_work = torch.zeros_like(work)
+    want4 = anchor_pool.pool_search_plain(dev, params, syms, offs, lens,
+                                          L + 1, cap, -1, plain_work)
+    err4 = max_abs_diff(list(got4) + [work], list(want4) + [plain_work])
+    seqs, lens3 = pack_reads(enc, pad_to=L, device="cuda")
+    k3 = anchor_device.batch_search_anchor(
+        dev, params, seqs, lens3, cap=cap,
+        budget=anchor_pool.lane_budget(lens3).to(torch.int32))
+    flags3 = (k3.incomplete.to(torch.uint8) * anchor_pool.FALLBACK
+              | k3.overflow.to(torch.uint8) * anchor_pool.OVERFLOW)
+    err43 = max_abs_diff(list(got4), [k3.qs, k3.length, k3.n_sfs, flags3])
+    pool_case = {"case": "stream of %d reads, 64 lanes" % len(enc),
+                 "L": L, "cap": cap, "max_abs_err": err4,
+                 "vs_one_shot_same_budget_max_abs_err": err43,
+                 "host_flags": int((got4.flags != 0).sum()),
+                 "work": dict(zip(anchor_device.WORK_FIELDS,
+                                  work.tolist()))}
+    bad3 = sum(c["max_abs_err"] > 0 for c in cases) + oracle_bad
+    return [{"name": "anchor_batch", "cases": cases,
+             "oracle_lanes": len(order), "oracle_mismatches": oracle_bad,
+             "mismatches": bad3,
+             "max_abs_err": max(c["max_abs_err"] for c in cases)},
+            {"name": "anchor_pool", "cases": [pool_case],
+             "mismatches": int(err4 > 0) + int(err43 > 0),
+             "max_abs_err": max(err4, err43)}]
+
+
 def dp_pairs(rng, n: int, bq: int, bt: int) -> list:
     """n (query, target) pairs for one call-stage bucket: targets of
     bt/2..bt symbols, queries carrying 0.5% SNVs and one 25-2000 bp
@@ -345,7 +510,7 @@ def check_wavefront(rng) -> dict:
 def phase_kernels(seed: int) -> dict:
     t0 = time.time()
     rng = np.random.default_rng(seed)
-    checks = [check_pingpong(rng), check_wavefront(rng)]
+    checks = [check_pingpong(rng), *check_anchor(rng), check_wavefront(rng)]
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "tolerance": 0, "checks": checks})
     bad = [c["name"] for c in checks if c["mismatches"]]
@@ -404,12 +569,24 @@ class LogTap(logging.Handler):
         raise RuntimeError(f"no log line matches {pattern!r}")
 
 
-# the stage functions `cli run` calls; it imports each from its module at
-# call time, so replacing the module's attribute times the stage
+# the stage functions `cli run` calls (it imports each from its module at
+# call time, or calls it through its module's globals), so replacing the
+# module's attribute times the stage; the anchor tables' build, load and
+# device upload are entries of their own (the upload inside search)
 STAGES = (("index", "svdss_tpu_torch.index.fmd", "build_index"),
+          ("anchor_build", "svdss_tpu_torch.cli", "_build_anchor"),
           ("smooth", "svdss_tpu_torch.pipeline.smooth", "run_smooth"),
+          ("anchor_load", "svdss_tpu_torch.cli", "_load_anchor"),
           ("search", "svdss_tpu_torch.pipeline.search", "run_search"),
+          ("anchor_upload", "svdss_tpu_torch.pipeline.search",
+           "build_device_anchor"),
           ("call", "svdss_tpu_torch.pipeline.call", "run_call"))
+
+# each kernel's launch counter (a module-level `launches`)
+KERNEL_MODULES = {"wavefront_dp": "svdss_tpu_torch.ops.align_dp",
+                  "pingpong_fm": "svdss_tpu_torch.ops.pingpong",
+                  "anchor_batch": "svdss_tpu_torch.ops.anchor_device",
+                  "anchor_pool": "svdss_tpu_torch.ops.anchor_pool"}
 
 
 class StageTimer:
@@ -490,93 +667,150 @@ class Spy:
         setattr(self.module, self.name, self.fn)
 
 
-def phase_run(wd: str, args) -> dict:
+def run_cli(argv: list, required: tuple) -> dict:
+    """One `cli run`, with every kernel's launch count set to 0 just
+    before it and read just after, its stages timed and its log kept."""
     from svdss_tpu_torch import cli
-    from svdss_tpu_torch.ops import align_dp, pingpong
-    from svdss_tpu_torch.pipeline import search as search_mod
     from svdss_tpu_torch.utils.log import logger
-
-    sim = simulate(wd, args.seed)
-    ref, bam = os.path.join(wd, "ref.fa"), os.path.join(wd, "reads.bam")
-    dev_wd, host_wd = os.path.join(wd, "device"), os.path.join(wd, "host")
-    threads = str(os.cpu_count() or 4)
-
-    spies = [Spy(search_mod, "batch_search",
-                 lambda idx, seqs, lens, **kw: (
-                     (tuple(seqs.shape), kw.get("cap")), seqs.numel())),
-             Spy(align_dp, "wavefront",
-                 lambda q, t, td, ti, lq, lt, p=None: (
-                     (q.shape[0], lq, lt), q.shape[0] * (lq + lt) * lq))]
+    mods = {k: importlib.import_module(m) for k, m in KERNEL_MODULES.items()}
     tap = LogTap()
     logger.addHandler(tap)
     timer = StageTimer()
     try:
-        pingpong.launches = 0
-        align_dp.launches = 0
+        for mod in mods.values():
+            mod.launches = 0
         t0 = time.perf_counter()
-        rc = cli.main(["run", "--reference", ref, "--bam", bam,
-                       "--workdir", dev_wd, "--engine", "fm",
-                       "--threads", threads])
+        rc = cli.main(["run", *argv])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {"pingpong_fm": pingpong.launches,
-                    "wavefront_dp": align_dp.launches}
+        launches = {k: mod.launches for k, mod in mods.items()}
     finally:
         timer.restore()
-        for s in spies:
-            s.restore()
         logger.removeHandler(tap)
     if rc != 0:
-        raise RuntimeError(f"run exited {rc}")
-    dev_stages = timer.stages("index", "smooth", "search", "call")
-    m = tap.grab(r"search: (\d+) reads in .*?(\d+) host fallbacks")
-    n_reads, redo = int(m.group(1)), int(m.group(2))
+        raise RuntimeError(f"run {argv} exited {rc}")
+    stages = timer.stages(*required)
+    # (the host engines' line has no redo count)
+    m = tap.grab(r"search: (\d+) reads in .*?reads/s\)"
+                 r"(?:, (\d+) host fallbacks)?")
+    n_reads = int(m.group(1))
+    return {"run_s": run_s, "stage_s": stages, "launches": launches,
+            "search_reads": n_reads,
+            "search_reads_per_s": n_reads / stages["search"],
+            "host_redo_reads": int(m.group(2) or 0), "tap": tap}
 
-    # the host engines on the same index and smoothed BAM
-    os.makedirs(host_wd)
-    for f in ("index.fmd.npz", "smoothed.bam"):
-        os.link(os.path.join(dev_wd, f), os.path.join(host_wd, f))
-    timer = StageTimer()
+
+def expect(run: dict, label: str, launched: tuple, idle: tuple,
+           logged: tuple, absent: tuple = ()) -> None:
+    """Fail unless each kernel in `launched` ran and none in `idle` did,
+    and the log holds every pattern of `logged` and none of `absent`."""
+    counts = run["launches"]
+    never = [k for k in launched if counts[k] < 1]
+    extra = [k for k in idle if counts[k] != 0]
+    if never or extra:
+        raise RuntimeError(f"{label}: kernels never launched {never}, "
+                           f"launched though off the path {extra}: {counts}")
+    for pat in logged:
+        run["tap"].grab(pat)
+    for pat in absent:
+        if any(re.search(pat, line) for line in run["tap"].lines):
+            raise RuntimeError(f"{label}: log shows {pat!r}")
+
+
+def phase_run(wd: str, args) -> dict:
+    from svdss_tpu_torch.ops import align_dp, anchor_pool
+    from svdss_tpu_torch.pipeline import search as search_mod
+
+    sim = simulate(wd, args.seed)
+    ref, bam = os.path.join(wd, "ref.fa"), os.path.join(wd, "reads.bam")
+    dirs = {k: os.path.join(wd, k) for k in ("auto", "oneshot", "fm",
+                                              "host")}
+    common = ["--reference", ref, "--bam", bam,
+              "--threads", str(os.cpu_count() or 4)]
+
+    spies = {"pingpong_fm": Spy(search_mod, "batch_search",
+                                lambda idx, seqs, lens, **kw: (
+                                    (tuple(seqs.shape), kw.get("cap")),
+                                    seqs.numel())),
+             "anchor_batch": Spy(search_mod, "batch_search_anchor",
+                                 lambda idx, p, seqs, lens, **kw: (
+                                     (tuple(seqs.shape), kw.get("cap")),
+                                     seqs.numel())),
+             "anchor_pool": Spy(anchor_pool, "pool_search",
+                                lambda idx, p, syms, offs, lens, **kw: (
+                                    (lens.shape[0], kw["Lp1"], kw["cap"]),
+                                    syms.numel())),
+             "wavefront_dp": Spy(align_dp, "wavefront",
+                                 lambda q, t, td, ti, lq, lt, p=None: (
+                                     (q.shape[0], lq, lt),
+                                     q.shape[0] * (lq + lt) * lq))}
+    runs = {}
     try:
-        t0 = time.perf_counter()
-        rc = cli.main(["run", "--reference", ref, "--bam", bam,
-                       "--workdir", host_wd, "--no-device",
-                       "--threads", threads])
-        host_s = time.perf_counter() - t0
+        # the main path: the default engine choice, as a user runs it
+        runs["auto"] = run_cli(
+            [*common, "--workdir", dirs["auto"]],
+            ("index", "anchor_build", "smooth", "anchor_load", "search",
+             "anchor_upload", "call"))
+        expect(runs["auto"], "auto run", ("anchor_pool", "wavefront_dp"),
+               ("anchor_batch", "pingpong_fm"),
+               (r"search: anchor engine on cuda",
+                r"search: anchor pool on cuda"), (r"FM engine on",))
+        # the other engines on hard links of the same index, anchor tables
+        # and smoothed BAM: only search and call rerun
+        for name in ("oneshot", "fm", "host"):
+            os.makedirs(dirs[name])
+            for f in ("index.fmd.npz", "index.fmd.npz.anchor.npz",
+                      "smoothed.bam"):
+                os.link(os.path.join(dirs["auto"], f),
+                        os.path.join(dirs[name], f))
+        runs["oneshot"] = run_cli(
+            [*common, "--workdir", dirs["oneshot"], "--engine", "anchor",
+             "--no-pool"], ("anchor_load", "search", "anchor_upload", "call"))
+        expect(runs["oneshot"], "--no-pool run",
+               ("anchor_batch", "wavefront_dp"),
+               ("anchor_pool", "pingpong_fm"),
+               (r"search: anchor engine on cuda",), (r"anchor pool on",))
+        runs["fm"] = run_cli(
+            [*common, "--workdir", dirs["fm"], "--engine", "fm"],
+            ("search", "call"))
+        expect(runs["fm"], "--engine fm run", ("pingpong_fm", "wavefront_dp"),
+               ("anchor_batch", "anchor_pool"),
+               (r"search: FM engine on cuda",))
+        runs["host"] = run_cli(
+            [*common, "--workdir", dirs["host"], "--no-device"],
+            ("search", "call"))
+        expect(runs["host"], "--no-device run", (), tuple(KERNEL_MODULES),
+               ())
     finally:
-        timer.restore()
-    if rc != 0:
-        raise RuntimeError(f"host run exited {rc}")
-    host_stages = timer.stages("search", "call")
+        for spy in spies.values():
+            spy.restore()
 
     same = {}
     for f in ("specifics.txt", "variations.vcf"):
-        a = open(os.path.join(dev_wd, f), "rb").read()
-        b = open(os.path.join(host_wd, f), "rb").read()
-        same[f] = a == b and len(a) > 0
-    quality = score_calls(os.path.join(dev_wd, "variations.vcf"),
+        want = open(os.path.join(dirs["host"], f), "rb").read()
+        same[f] = len(want) > 0 and all(
+            open(os.path.join(dirs[k], f), "rb").read() == want
+            for k in ("auto", "oneshot", "fm"))
+    quality = score_calls(os.path.join(dirs["auto"], "variations.vcf"),
                           sim["truth"])
     info = {"phase": "run", "genome_mbp": GENOME_MBP, "coverage": COVERAGE,
             "read_len": READ_LEN, "n_sv": N_SV, "reduced": [],
             "simulated_reads": sim["reads"], "simulate_s": sim["seconds"],
-            "run_s": run_s, "stage_s": dev_stages,
-            "search_reads": n_reads,
-            "search_reads_per_s": n_reads / dev_stages["search"],
-            "host_redo_reads": redo, "launches": launches,
-            "pingpong_batches": {f"{k[0]} cap {k[1]}": v for k, v in
-                                 spies[0].shapes.items()},
-            "wavefront_buckets": {f"B{k[0]} {k[1]}x{k[2]}": v for k, v in
-                                  spies[1].shapes.items()},
-            "host_run_s": host_s, "host_stage_s": host_stages,
-            "identical_to_host": same, **quality}
+            "runs": {k: {f: v for f, v in r.items() if f != "tap"}
+                     for k, r in runs.items()},
+            "batches": {k: {f"{s[0]} cap {s[1]}" if len(s) == 2
+                            else " ".join(map(str, s)): v
+                            for s, v in spy.shapes.items()}
+                        for k, spy in spies.items()},
+            "identical_across_engines": same, **quality}
     emit(info)
     if not all(same.values()):
-        raise RuntimeError(f"device output differs from the host: {same}")
-    if min(launches.values()) < 1:
-        raise RuntimeError(f"a kernel of the main path never ran: "
-                           f"{launches}")
+        raise RuntimeError(f"engines' outputs differ: {same}")
     if quality["recall"] < 0.9:
         raise RuntimeError(f"recall {quality['recall']:.3f} below 0.9")
+    launches = dict(runs["auto"]["launches"])
+    launches["anchor_batch"] = runs["oneshot"]["launches"]["anchor_batch"]
+    launches["pingpong_fm"] = runs["fm"]["launches"]["pingpong_fm"]
     return {"launches": launches, "spies": spies}
 
 
@@ -588,13 +822,25 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def live_lanes(seqs, lens):
+    """The lanes of a search batch that hold reads: the search stage fills
+    a batch up to its lane count with one-symbol padding lanes, whose
+    results nothing reads."""
+    live = lens > 1
+    return seqs[live], lens[live]
+
+
 def time_pingpong(spy: Spy) -> dict:
     from svdss_tpu_torch.ops import pingpong
     _, (index, seqs, lens), kw = spy.best
     Q, Lp1 = seqs.shape
     cap = kw["cap"]
+    got = pingpong.batch_search(index, seqs, lens, **kw)
+    # the work the reads need: the live lanes alone (results per lane do
+    # not depend on the other lanes)
+    lseqs, llens = live_lanes(seqs, lens)
     work = torch.zeros(1, dtype=torch.int64, device=seqs.device)
-    got = pingpong.batch_search(index, seqs, lens, work=work, **kw)
+    live = pingpong.batch_search(index, lseqs, llens, work=work, **kw)
     torch.cuda.synchronize()
     steps = int(work.item())
     ms = cuda_ms(lambda: pingpong.batch_search(index, seqs, lens, **kw), 5)
@@ -606,15 +852,16 @@ def time_pingpong(spy: Spy) -> dict:
     fields = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
     err = max_abs_diff([getattr(got, f) for f in fields],
                        [getattr(holder["r"], f) for f in fields])
-    # bytes: each lane's symbols and its sentinel once (a padding lane
-    # holds one symbol), the lengths once, the rows the walk touches once
-    # (never more than the whole table), the outputs once
+    # bytes: each live lane's symbols and its sentinel once, its length
+    # once, the rows the walk touches once (never more than the whole
+    # table), the emissions written (8 B each) and the per-lane scalars
     table = index.fused.numel() * 4
-    read_bytes = int((lens.long() + 1).sum())
-    nbytes = (read_bytes + 4 * Q + min(table, steps * 192) + 8 * Q * cap
-              + 6 * Q + 4)
+    read_bytes = int((llens.long() + 1).sum())
+    nbytes = (read_bytes + 4 * len(llens) + min(table, steps * 192)
+              + 8 * int(live.n_sfs.sum()) + 6 * len(llens) + 4)
     bms, by = bound(nbytes, steps * OPS_PER_RANK_STEP)
-    return {"shape": f"Q={Q} L+1={Lp1} cap={cap}", "rank_steps": steps,
+    return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap}",
+            "rank_steps": steps,
             "read_bytes": read_bytes, "bound_bytes": nbytes,
             "table_MiB": table / 2 ** 20, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "max_abs_err": err}
@@ -640,10 +887,93 @@ def time_wavefront(spy: Spy) -> dict:
             "max_abs_err": err}
 
 
+def anchor_bound(index, lens, work, n_sfs, scalars: int) -> tuple:
+    """(bytes, ops) the anchor work of the reads `lens` needs: each read's
+    symbols once, the lengths once, the table rows (16 B) and text rows
+    (64 B) its rounds touched (each capped at its table), the emissions
+    written (8 B each; the zeroed rest of each [cap] row is left out,
+    nothing reads it) and `scalars` bytes of per-read results; the
+    operations of its rounds and compared symbols."""
+    rounds, rows, text_rows, syms = work
+    nbytes = (int((lens.long() + 1).sum()) + 4 * lens.numel()
+              + min(index.small.numel() * 4, rows * 16)
+              + min(index.text_words.numel() * 4, text_rows * 64)
+              + 8 * int(n_sfs.sum()) + scalars)
+    return nbytes, (rounds * OPS_PER_ANCHOR_ROUND
+                    + syms * OPS_PER_COMPARED_SYMBOL)
+
+
+def time_anchor_batch(spy: Spy) -> dict:
+    from svdss_tpu_torch.ops import anchor_device
+    _, (index, params, seqs, lens), kw = spy.best
+    Q, Lp1 = seqs.shape
+    cap = kw["cap"]
+    got = anchor_device.batch_search_anchor(index, params, seqs, lens, **kw)
+    # the work the reads need: the live lanes alone (results per lane do
+    # not depend on the other lanes)
+    lseqs, llens = live_lanes(seqs, lens)
+    work = torch.zeros(4, dtype=torch.int64, device=seqs.device)
+    live = anchor_device.batch_search_anchor(index, params, lseqs, llens,
+                                             work=work, **kw)
+    torch.cuda.synchronize()
+    work = work.tolist()
+    ms = cuda_ms(lambda: anchor_device.batch_search_anchor(
+        index, params, seqs, lens, **kw), 5)
+    holder = {}
+    plain_ms = once_ms(lambda: holder.setdefault(
+        "r", anchor_device.batch_search_anchor_plain(
+            index, params, seqs, lens, cap, kw.get("max_rounds")
+            or anchor_device.default_max_rounds(Lp1),
+            kw.get("overlap", -1))))
+    err = max_abs_diff([getattr(got, f) for f in ANCHOR_FIELDS],
+                       [getattr(holder["r"], f) for f in ANCHOR_FIELDS])
+    # per read: n_sfs, overflow, incomplete; and iters
+    nbytes, ops = anchor_bound(index, llens, work, live.n_sfs,
+                               6 * len(llens) + 4)
+    bms, by = bound(nbytes, ops)
+    return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap} "
+                     f"max_rounds={kw.get('max_rounds')}",
+            "work": dict(zip(anchor_device.WORK_FIELDS, work)),
+            "iters": int(got.iters), "bound_bytes": nbytes,
+            "bound_ops": ops, "table_GiB": index.small.numel() * 4 / 2 ** 30,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err}
+
+
+def time_anchor_pool(spy: Spy) -> dict:
+    from svdss_tpu_torch.ops import anchor_device, anchor_pool
+    _, (index, params, syms, offs, lens), kw = spy.best
+    M = lens.shape[0]
+    cap, Lp1 = kw["cap"], kw["Lp1"]
+    work = torch.zeros(4, dtype=torch.int64, device=syms.device)
+    got = anchor_pool.pool_search(index, params, syms, offs, lens,
+                                  work=work, **kw)
+    torch.cuda.synchronize()
+    work = work.tolist()
+    ms = cuda_ms(lambda: anchor_pool.pool_search(index, params, syms, offs,
+                                                 lens, **kw), 5)
+    holder = {}
+    plain_ms = once_ms(lambda: holder.setdefault(
+        "r", anchor_pool.pool_search_plain(index, params, syms, offs, lens,
+                                           Lp1, cap, kw.get("overlap", -1))))
+    err = max_abs_diff(list(got), list(holder["r"]))
+    # per read: its offset into syms (8 B), n_sfs and flags
+    nbytes, ops = anchor_bound(index, lens, work, got.n_sfs, 8 * M + 5 * M)
+    bms, by = bound(nbytes, ops)
+    return {"shape": f"M={M} lanes={kw.get('lanes')} L+1={Lp1} cap={cap}",
+            "work": dict(zip(anchor_device.WORK_FIELDS, work)),
+            "host_flags": int((got.flags != 0).sum()),
+            "bound_bytes": nbytes, "bound_ops": ops, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err}
+
+
 def phase_timing(run: dict) -> dict:
     spies = run["spies"]
-    out = {"pingpong_fm": time_pingpong(spies[0]),
-           "wavefront_dp": time_wavefront(spies[1])}
+    out = {"pingpong_fm": time_pingpong(spies["pingpong_fm"]),
+           "anchor_batch": time_anchor_batch(spies["anchor_batch"]),
+           "anchor_pool": time_anchor_pool(spies["anchor_pool"]),
+           "wavefront_dp": time_wavefront(spies["wavefront_dp"])}
     emit({"phase": "timing", **out})
     bad = [k for k, v in out.items() if v["max_abs_err"]]
     if bad:
@@ -657,6 +987,10 @@ def phase_timing(run: dict) -> dict:
 KERNELS = (
     ("pingpong_fm", "svdss_tpu_torch/csrc/pingpong.cu",
      "svdss_tpu/ops/pingpong_jax.py:117"),
+    ("anchor_batch", "svdss_tpu_torch/csrc/anchor.cu",
+     "svdss_tpu/ops/anchor_jax.py:646"),
+    ("anchor_pool", "svdss_tpu_torch/csrc/anchor.cu",
+     "svdss_tpu/ops/anchor_pool.py:114"),
     ("wavefront_dp", "svdss_tpu_torch/csrc/wavefront.cu",
      "svdss_tpu/ops/align_pallas.py:181"),
 )

@@ -9,9 +9,13 @@ the internal genotyper standing in for the external ``kanpig gt`` step.
 
 The device stages (search, call) run on the CUDA card unless ``--device
 cpu`` asks for the plain PyTorch versions of the kernels on the CPU;
-``--no-device`` runs the exact host engines instead. Single process: the
-multi-host sharding of the JAX package is not ported yet, and neither are
-its anchor search engines (``--engine fm``/``auto`` take the FM engine).
+``--no-device`` runs the exact host engines instead. ``index`` (unless
+``--engine fm``) and ``run`` (on the device path, unless ``--engine fm``)
+also build the anchor-engine tables beside the FMD index
+(``<index>.anchor.npz``), and the search takes its engine from them as the
+JAX package does. Single process: the multi-host sharding of the JAX
+package is not ported yet, and neither is its wide anchor engine, so
+``run`` builds no wide anchor tables and searches such genomes with FM.
 """
 
 from __future__ import annotations
@@ -40,8 +44,15 @@ def _common(p: argparse.ArgumentParser) -> None:
                    help="device search batch width (default: 4096)")
     p.add_argument("--engine", choices=("auto", "anchor", "fm"),
                    default="auto",
-                   help="device search engine (default: auto = the FM rank "
-                        "walk; the anchor engines are not ported yet)")
+                   help="device search engine (default: auto = anchor "
+                        "tables when present and the index holds 2^26 "
+                        "symbols or more, else the FM rank walk)")
+    p.add_argument("--no-pool", action="store_true",
+                   help="anchor engine: one-shot batches instead of the "
+                        "persistent-lane pool")
+    p.add_argument("--pool", action="store_true",
+                   help="anchor engine: the persistent-lane pool (the "
+                        "default; kept from the JAX package's command line)")
 
 
 def _cfg(args: argparse.Namespace) -> Config:
@@ -52,6 +63,7 @@ def _cfg(args: argparse.Namespace) -> Config:
         use_device=not getattr(args, "no_device", False),
         lanes=getattr(args, "lanes", 4096),
         engine=getattr(args, "engine", "auto"),
+        pool=not getattr(args, "no_pool", False),
     )
     for field in ("accp", "min_mapq", "min_sv_length", "min_cluster_weight",
                   "clipped", "max_output"):
@@ -69,6 +81,74 @@ def _cfg(args: argparse.Namespace) -> Config:
     return cfg
 
 
+def _anchor_path(index_path: str) -> str:
+    return index_path + ".anchor.npz"
+
+
+def _wide_anchor(chroms) -> bool:
+    """Whether the genome's anchor tables are the wide forward-strand ones
+    (ops/anchor_wide.py): from 1.2G two-strand symbols, or below when
+    SVDSS_TPU_WIDE_ANCHOR is set (the JAX package's switch, read the same
+    way)."""
+    n = sum(2 * (len(seq) + 1) for seq in chroms.values())
+    return n >= 1_200_000_000 or bool(os.environ.get("SVDSS_TPU_WIDE_ANCHOR"))
+
+
+def _build_anchor(chroms, index_path: str, cmax: int) -> None:
+    """Build and save the anchor-engine tables next to the FMD index,
+    narrow two-strand or wide (`_wide_anchor`). Logs the build's time and
+    the process's peak resident memory."""
+    import resource
+    import time as _time
+    import numpy as np
+    from .index.fmd import genome_text
+    from .ops.anchor import build_anchor_index
+    from .utils.seq import encode_nt6
+    t0 = _time.time()
+    if _wide_anchor(chroms):
+        from .ops.anchor_wide import build_anchor_index_wide, WIDE_CMAX
+        parts = []
+        for seq in chroms.values():
+            parts.append(encode_nt6(seq))
+            parts.append(np.zeros(1, dtype=np.uint8))
+        fwd = np.concatenate(parts[:-1])
+        del parts
+        widx = build_anchor_index_wide(fwd, cmax=max(cmax, WIDE_CMAX))
+        widx.save(_anchor_path(index_path))
+        logger.info("index: WIDE anchor tables (k=%d, %d fwd symbols) "
+                    "built in %.1fs -> %s", widx.k, widx.n,
+                    _time.time() - t0, _anchor_path(index_path))
+        return
+    aidx = build_anchor_index(genome_text(chroms), cmax=cmax)
+    aidx.save(_anchor_path(index_path))
+    logger.info("index: anchor tables (k=%d, j0=%d) built in %.1fs, peak "
+                "RSS %.2f GiB -> %s", aidx.k, aidx.j0, _time.time() - t0,
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+                _anchor_path(index_path))
+
+
+def _load_anchor(cfg: Config, index_path: str):
+    """The saved anchor tables (narrow AnchorIndex or wide
+    AnchorIndexWide, told apart by their fields), when present and
+    wanted."""
+    if not cfg.use_device or cfg.engine == "fm":
+        return None
+    path = _anchor_path(index_path)
+    if not os.path.exists(path):
+        if cfg.engine == "anchor":
+            raise SystemExit(f"--engine anchor: {path} not found "
+                             "(rebuild the index)")
+        return None
+    import numpy as np
+    with np.load(path) as z:
+        wide = "cnts" in z.files
+    if wide:
+        from .ops.anchor_wide import AnchorIndexWide
+        return AnchorIndexWide.load(path)
+    from .ops.anchor import AnchorIndex
+    return AnchorIndex.load(path)
+
+
 def cmd_index(args) -> int:
     from .io.fasta import load_chromosomes
     from .index.fmd import build_index
@@ -78,6 +158,8 @@ def cmd_index(args) -> int:
     idx = build_index(chroms, threads=getattr(args, "threads", 1) or 1)
     idx.save(args.index)
     logger.info("index: %d BWT symbols -> %s", idx.n, args.index)
+    if getattr(args, "engine", "auto") != "fm":
+        _build_anchor(chroms, args.index, Config().anchor_cmax)
     return 0
 
 
@@ -96,10 +178,11 @@ def cmd_search(args) -> int:
     from .pipeline.search import run_search
     cfg = _cfg(args)
     index = FMDIndex.load(args.index)
+    anchor = _load_anchor(cfg, args.index)
     out = open(args.out, "w") if args.out else sys.stdout
     try:
         run_search(cfg, index, bam=args.bam, fastx=args.fastx, out=out,
-                   device=args.device)
+                   device=args.device, anchor=anchor)
     finally:
         if args.out:
             out.close()
@@ -165,6 +248,18 @@ def cmd_run(args) -> int:
 
     import time as _time
     chroms = load_chromosomes(args.reference)
+    want_anchor = cfg.use_device and cfg.engine != "fm"
+    if want_anchor and _wide_anchor(chroms):
+        # the wide anchor engine is not ported yet: its tables, the largest
+        # host build of the pipeline, would serve nothing
+        if cfg.engine == "anchor":
+            raise SystemExit("--engine anchor: this genome takes the wide "
+                             "anchor engine, which is not ported yet (use "
+                             "--engine fm or auto)")
+        logger.warning("run: this genome takes wide anchor tables, whose "
+                       "engine is not ported yet; building none, the "
+                       "search takes the FM engine")
+        want_anchor = False
     if os.path.exists(index_path):
         logger.info("run: reusing existing index %s", index_path)
         index = FMDIndex.load(index_path)
@@ -175,6 +270,8 @@ def cmd_run(args) -> int:
         os.replace(index_path + ".tmp.npz", index_path)
         logger.info("run: index built in %.1fs (%d symbols)",
                     _time.time() - t0, index.n)
+    if want_anchor and not os.path.exists(_anchor_path(index_path)):
+        _build_anchor(chroms, index_path, cfg.anchor_cmax)
     if not os.path.exists(smoothed_path):
         # artifacts are written to a temp name and renamed on success, so
         # an interrupted stage re-runs instead of resuming a partial file
@@ -183,9 +280,11 @@ def cmd_run(args) -> int:
     else:
         logger.info("run: reusing %s", smoothed_path)
     if not os.path.exists(sfs_path):
+        anchor = _load_anchor(cfg, index_path) if want_anchor else None
         with open(sfs_path + ".tmp", "w") as fh:
             run_search(cfg, index, bam=smoothed_path, out=fh,
-                       device=args.device)
+                       device=args.device, anchor=anchor)
+        del anchor
         os.replace(sfs_path + ".tmp", sfs_path)
     else:
         logger.info("run: reusing %s", sfs_path)
@@ -215,6 +314,10 @@ def main(argv=None) -> int:
     p.add_argument("--reference", required=True)
     p.add_argument("--index", required=True)
     p.add_argument("--threads", type=int, default=4)
+    p.add_argument("--engine", choices=("auto", "anchor", "fm"),
+                   default="auto",
+                   help="also build anchor-engine tables (auto/anchor; "
+                        "fm = FMD index only)")
     p.set_defaults(func=cmd_index)
 
     p = sub.add_parser("smooth", help="smooth a BAM against the reference")
@@ -275,9 +378,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.cmd in ("search", "call", "run") and not args.no_device:
         # fail before any stage runs
-        if args.engine == "anchor":
-            parser.error("--engine anchor: the anchor search engines are "
-                         "not ported yet (use fm or auto)")
         resolve_device(args.device)
     return args.func(args)
 

@@ -19,7 +19,6 @@ only value the reference can ever use (-1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 
 @dataclasses.dataclass
@@ -74,14 +73,11 @@ class Config:
     anchor_cmax: int = 16             # anchor engine: max occurrences
                                       # verified per k-mer before the lane
                                       # falls back to the exact FM path
-    pool: Optional[bool] = None       # anchor engine: persistent-lane pool
+    pool: bool = True                 # anchor engine: persistent-lane pool
                                       # (refill lanes from the stream as
                                       # they finish) instead of one-shot
                                       # batches that wait for the slowest
-                                      # lane. None = auto: pool only when
-                                      # the measured host<->device link is
-                                      # fast enough that its per-superstep
-                                      # transfers are not the bottleneck
+                                      # lane
     kmer_jump: int = 0                # k-mer jump-start table size (0 = off,
                                       # the measured default: the per-step
                                       # table gather outweighs the ~5-10%

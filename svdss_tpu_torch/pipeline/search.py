@@ -6,11 +6,13 @@ around the batched device kernel:
   * stream the (smoothed) BAM, keeping primary alignments with
     l_qseq >= 100 and (by default) XF == 0 — the same eligibility rules as
     load_batch_bam/process_batch (ping_pong.cpp:66-79, 196-203);
-  * encode reads to nt6 and pack them into length-bucketed lane batches
-    (powers of two);
-  * run the device search (ops/pingpong.py: the FM rank walk, kernel K2
-    on the card), falling back to the exact host search for any lane that
-    overflows its emission buffer or step budget — output is exact either
+  * encode reads to nt6 and search them on the device with one of two
+    engines: the FM rank walk (ops/pingpong.py, kernel K2 on the card) in
+    length-bucketed lane batches, or the anchor-verify engine
+    (ops/anchor_device.py) — one-shot batches (kernel K3) or the
+    persistent-lane pool (ops/anchor_pool.py, kernel K4) — chosen as the
+    JAX package chooses; any lane that overflows its emission buffer or
+    needs the exact path is redone on the host, so output is exact either
     way;
   * optionally merge overlapping SFSs per read (ops/assemble.py, on by
     default like ``--noassemble``'s inverse) and write the 4-column
@@ -24,6 +26,7 @@ read name, so ordering is immaterial — documented deviation).
 
 from __future__ import annotations
 
+import resource
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -34,6 +37,9 @@ from ..index.fmd import FMDIndex
 from ..io.bam import BamReader
 from ..io.sfs_file import write_sfs_file
 from ..models import SFS
+from ..ops.anchor_device import batch_search_anchor, build_device_anchor
+from ..ops.anchor_pool import AnchorPool
+from ..ops.anchor_wide import AnchorIndexWide
 from ..ops.assemble import assemble
 from ..ops.fmd import DeviceFMDIndex
 from ..ops.pingpong import batch_search, pack_reads
@@ -218,34 +224,104 @@ def eligible_reads_fastx(path: str) -> Iterator[Tuple[str, str, int]]:
                 fh.readline()
                 yield h[1:].split()[0], s, 0
 
+
+def wide_engine_cost(anchor):
+    """Gather-cost estimates (anchor_gathers_per_phase, fm_gathers_per
+    _phase, pw_depth) for the wide-engine-vs-FM routing decision, as the
+    JAX package computes them (its constants were calibrated on the TPU:
+    the port reproduces the decision, not the tuning). Per phase the
+    anchor engine pays the 3-gather KEY chain plus ~2*log2(depth) probe
+    gathers per orientation on right-sorted buckets (linear ~1.5*depth for
+    orientation B on right-order-only tables) plus a parked-wave surcharge
+    on heavy phases; depth is the POSITION-WEIGHTED kept-bucket size. The
+    FM walk pays ~2 gathers per matched symbol."""
+    import math
+    kept = anchor.aux != 0xFFFFFFFF
+    c = np.where(kept, anchor.cnts, 0).astype(np.int64)
+    depth = max(2.0, float((c * c).sum()) / max(1, int(c.sum())))
+    probes = 2.0 * math.log2(depth)
+    b_cost = probes if anchor.leftidx is not None else 1.5 * depth
+    hr_eff = max(getattr(anchor, "heavy_rate", 0.0), 0.0)
+    anchor_gpp = 3.0 + probes + b_cost + hr_eff * 500.0
+    fm_gpp = 2.0 * (math.log(2.0 * anchor.n, 4.0) + 2.0)
+    return anchor_gpp, fm_gpp, depth
+
+
 class _DeviceSearcher:
-    """Length-bucketed batching onto the FM rank-walk kernel.
+    """Length-bucketed batching onto the device search kernels.
 
-    Reads are packed per length bucket into batches of `lanes_for` lanes
-    and searched by `ops.pingpong.batch_search` on the searcher's device;
-    any lane that overflows its emission buffer or its step budget is
-    redone exactly on the host. The anchor engines of the JAX package are
-    not ported yet."""
+    Two engines share the batching and host-redo shell: the FM rank walk
+    (ops/pingpong.py, K2) and the narrow anchor-verify engine
+    (ops/anchor_device.py, K3; its pool, K4, is driven by `run_search`).
+    The engine is chosen as the JAX package chooses it: anchor when anchor
+    tables are given and the index holds 2^26 symbols or more (or
+    ``--engine anchor``), unless its tables report a phase-heavy rate above
+    5%; wide tables go through the JAX package's cost model, and where it
+    picks the wide anchor engine, which is not ported yet, the FM engine
+    runs instead (``--engine anchor`` raises). Any lane that overflows or
+    needs the exact path is redone on the host."""
 
-    def __init__(self, index: FMDIndex, config: Config, device=None):
-        if config.engine == "anchor":
-            raise NotImplementedError(
-                "the anchor search engines are not ported yet; use "
-                "--engine fm (or auto)")
+    def __init__(self, index: FMDIndex, config: Config, device=None,
+                 anchor=None):
         if config.kmer_jump:
             raise NotImplementedError(
                 "the k-mer jump table is not ported yet (kmer_jump=0)")
-        if config.engine == "auto":
-            logger.info("search: --engine auto takes the FM engine (the "
-                        "anchor engines are not ported yet)")
         self.device = resolve_device(device)
         self.index = index
         self.config = config
-        self.dev = DeviceFMDIndex.from_host(index, self.device)
-        logger.info("search: FM engine on %s (fused table %.1f MiB)",
-                    self.device, self.dev.nbytes / 2 ** 20)
+        self.anchor = None
+        self.dev = None
+        # the JAX package's crossover: the FM walk while its table is
+        # small, the anchor engine from 2^26 symbols
+        use_anchor = anchor is not None and (
+            config.engine == "anchor"
+            or (config.engine == "auto" and index.n >= (1 << 26)))
+        hr = getattr(anchor, "heavy_rate", -1.0) if anchor is not None \
+            else -1.0
+        wide_tables = isinstance(anchor, AnchorIndexWide)
+        if use_anchor and config.engine == "auto":
+            if wide_tables:
+                anchor_gpp, fm_gpp, depth = wide_engine_cost(anchor)
+                if anchor_gpp > fm_gpp:
+                    logger.warning(
+                        "search: engine cost model picks FM — anchor "
+                        "~%.0f gathers/phase (pw bucket depth %.0f, "
+                        "heavy rate %.1f%%) vs FM ~%.0f; --engine "
+                        "anchor to override", anchor_gpp, depth,
+                        100 * max(hr, 0.0), fm_gpp)
+                    use_anchor = False
+            elif hr > 0.05:
+                # narrow tables fall back per read on heavy k-mers
+                logger.warning(
+                    "search: anchor tables report %.1f%% phase-heavy "
+                    "rate — most reads would fall back; using the FM "
+                    "device engine (--engine anchor to override)",
+                    100 * hr)
+                use_anchor = False
+        if use_anchor and wide_tables:
+            if config.engine == "anchor":
+                raise NotImplementedError(
+                    "the wide anchor engine is not ported yet (use --engine "
+                    "fm or auto)")
+            logger.warning("search: the cost model picks the wide anchor "
+                           "engine, which is not ported yet; using the FM "
+                           "device engine")
+            use_anchor = False
+        if use_anchor:
+            self.anchor, self.anchor_params = build_device_anchor(
+                anchor, self.device)
+            logger.info("search: anchor engine on %s (k=%d, tables "
+                        "%.2f GiB; host peak RSS %.2f GiB)", self.device,
+                        self.anchor_params.k, self.anchor.nbytes / 2 ** 30,
+                        resource.getrusage(
+                            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
+        else:
+            self.dev = DeviceFMDIndex.from_host(index, self.device)
+            logger.info("search: FM engine on %s (fused table %.1f MiB)",
+                        self.device, self.dev.nbytes / 2 ** 20)
         self.lanes = config.lanes
         self.cap = config.max_sfs_per_read
+        self.smoothed_input = False
         self.fallbacks = 0
         self._redo_exec = None
 
@@ -257,6 +333,15 @@ class _DeviceSearcher:
         base = self.lanes * 10_000
         q = max(256, min(4 * self.lanes, base // max(L, 1)))
         return max(256, (q // 256) * 256)
+
+    def round_cap_for(self, L: int) -> int:
+        """Lockstep round cap for one-shot narrow-anchor batches, as the
+        JAX package sets it: on smoothed input (the XF == 0 filter) lanes
+        past ~L/14 rounds (at least 384) go to the host; other inputs keep
+        the engine default (0)."""
+        if not self.smoothed_input:
+            return 0
+        return max(384, L // 14)
 
     def dispatch(self, encoded: List[np.ndarray]):
         """Launch a device batch; returns an opaque handle. A CUDA launch
@@ -274,8 +359,14 @@ class _DeviceSearcher:
         # emission cap scales with the bucket length: SFS-dense 30 kb
         # reads average ~470 SFS
         cap = max(self.cap, L // 16)
-        res = batch_search(self.dev, seqs, lens, cap=cap,
-                           overlap=self.config.overlap)
+        if self.anchor is not None:
+            res = batch_search_anchor(self.anchor, self.anchor_params, seqs,
+                                      lens, cap=cap,
+                                      max_rounds=self.round_cap_for(L),
+                                      overlap=self.config.overlap)
+        else:
+            res = batch_search(self.dev, seqs, lens, cap=cap,
+                               overlap=self.config.overlap)
         return (encoded, res)
 
     def _redo_pool(self):
@@ -325,11 +416,16 @@ class _DeviceSearcher:
 
 def run_search(config: Config, index: FMDIndex,
                bam: Optional[str] = None, fastx: Optional[str] = None,
-               out=None, device=None) -> List[Tuple[str, List[SFS]]]:
+               out=None, device=None, anchor=None
+               ) -> List[Tuple[str, List[SFS]]]:
     """Run the search stage; returns (and optionally writes) per-read SFSs.
 
-    config.use_device selects the FM kernel on `device` (cuda unless
-    asked otherwise); False runs the exact host engines.
+    config.use_device selects the device engines on `device` (cuda unless
+    asked otherwise); False runs the exact host engines. `anchor` is the
+    host anchor tables (ops/anchor.py or ops/anchor_wide.py) when the
+    index has them; with them the engine gate of `_DeviceSearcher` may
+    take the anchor engine, and then the pool unless config.pool is False
+    (one-shot batches).
 
     When writing, output is flushed every >= config.max_output accumulated
     SFS (the reference's --omax deferred-output buffering,
@@ -344,8 +440,12 @@ def run_search(config: Config, index: FMDIndex,
     else:
         raise ValueError("search needs a BAM or FASTX input")
 
-    searcher = _DeviceSearcher(index, config, device) \
+    searcher = _DeviceSearcher(index, config, device, anchor) \
         if config.use_device else None
+    if searcher is not None:
+        # smoothed-BAM inputs carry the XF == 0 filter the one-shot round
+        # cap is set for (round_cap_for)
+        searcher.smoothed_input = bam is not None and config.putative
 
     groups: List[Tuple[str, List[SFS]]] = []
     t0 = time.time()
@@ -386,6 +486,68 @@ def run_search(config: Config, index: FMDIndex,
             if len(batch) >= config.batch_size:
                 flush_host()
         flush_host()
+    elif searcher.anchor is not None and config.pool:
+        # persistent-lane pool: ONE pool serves every read-length bucket,
+        # recreated at a wider shape when a longer bucket appears (after
+        # draining the narrower one, as the JAX package's driver does)
+        pool: Optional[AnchorPool] = None
+        order: List[Tuple[str, int]] = []          # ordinal -> (qname, hp)
+        results_store: Dict[int, List[Tuple[int, int]]] = {}
+        enc_store: Dict[int, np.ndarray] = {}      # in-flight + redo
+        redo: List[int] = []
+        emitted = [0]                              # next ordinal to emit
+
+        def flush_redo() -> None:
+            if not redo:
+                return
+            res = host_search_batch(index, [enc_store.pop(i) for i in redo],
+                                    config.overlap, config.threads)
+            for i, r in zip(redo, res):
+                results_store[i] = r
+            redo.clear()
+
+        def emit_ready() -> None:
+            """Emit the completed prefix in stream order, releasing
+            buffered results as it goes."""
+            while emitted[0] in results_store:
+                tag = emitted[0]
+                emitted[0] += 1
+                qname, hp = order[tag]
+                emit([(qname, hp)], [results_store.pop(tag)])
+
+        def absorb(done) -> None:
+            for tag, pairs in done:
+                if pairs is None:
+                    searcher.fallbacks += 1
+                    redo.append(tag)
+                else:
+                    results_store[tag] = pairs
+                    del enc_store[tag]
+            if len(redo) >= 256:
+                flush_redo()
+            emit_ready()
+
+        for qname, seq, hp in _prefetch(reads):
+            enc = seq if isinstance(seq, np.ndarray) else encode_nt6(seq)
+            b = _bucket_len(len(enc))
+            if pool is None or b > pool.Lp1 - 1:
+                if pool is not None:
+                    absorb(pool.drain())
+                pool = AnchorPool(searcher.anchor, searcher.anchor_params,
+                                  lanes=config.lanes, read_len=b,
+                                  cap=searcher.cap, overlap=config.overlap)
+            tag = nreads
+            nreads += 1
+            order.append((qname, hp))
+            enc_store[tag] = enc
+            pool.feed(tag, enc)
+            if pool.queued >= pool.M:
+                absorb(pool.pump())
+        if pool is not None:
+            absorb(pool.drain())
+        flush_redo()
+        emit_ready()
+        assert emitted[0] == nreads, "pool lost reads"
     else:
         # accumulate per length bucket; flush full batches
         buckets: Dict[int, List] = {}

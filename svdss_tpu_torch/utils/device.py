@@ -35,9 +35,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+# the anchor tables' leading arguments: small, its rows, text_words, n, k,
+# j0, cmax, pos_base, bm_bases (host int32[16])
+_ANCHOR_TABLES = [_P, _LL, _P] + [_I] * 5 + [_P]
 # C signatures of the entry points (every pointer and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints)
 SIGNATURES = {
+    "anchor": {
+        "svdss_anchor_batch": _ANCHOR_TABLES + [_P] * 3 + [_I] * 5
+                              + [_P] * 8,
+        "svdss_anchor_pool": _ANCHOR_TABLES + [_P] * 3 + [_I] * 5
+                             + [_P] * 7,
+    },
     "pingpong": {
         "svdss_pingpong_fm": [_P] * 4 + [_I] * 5 + [_P] * 8,
     },

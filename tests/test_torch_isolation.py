@@ -12,8 +12,11 @@ import torch
 
 from svdss_tpu_torch import cli
 from svdss_tpu_torch.config import Config
-from svdss_tpu_torch.index.fmd import build_index
+from svdss_tpu_torch.index.fmd import build_index, genome_text
 from svdss_tpu_torch.ops.align_dp import batch_align
+from svdss_tpu_torch.ops.anchor import build_anchor_index
+from svdss_tpu_torch.ops.anchor_device import (batch_search_anchor,
+                                               build_device_anchor)
 from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
 from svdss_tpu_torch.ops.pingpong import batch_search, pack_reads
 from svdss_tpu_torch.pipeline.call import run_call
@@ -88,11 +91,16 @@ def test_kernel_entry_points_default_to_cuda(no_cuda, tiny):
              np.array([1, 2, 4], dtype=np.int32))]
     with pytest.raises(RuntimeError):
         batch_align(pair)
+    aidx = build_anchor_index(genome_text(chroms))
+    with pytest.raises(RuntimeError):
+        build_device_anchor(aidx)
     # the same calls with device="cpu" run the plain versions
     dev = DeviceFMDIndex.from_host(index, "cpu")
     seqs, lens = pack_reads([np.ones(4, dtype=np.uint8)], device="cpu")
     assert int(batch_search(dev, seqs, lens).n_sfs[0]) >= 0
     assert batch_align(pair, device="cpu")[0][0] < 0
+    adev, params = build_device_anchor(aidx, "cpu")
+    assert int(batch_search_anchor(adev, params, seqs, lens).n_sfs[0]) >= 0
 
 
 def test_stage_entry_points_default_to_cuda(no_cuda, tiny, tmp_path):
@@ -114,6 +122,8 @@ def test_cli_defaults_to_cuda(no_cuda, tiny, tmp_path):
     index.save(idx)
     with pytest.raises(RuntimeError):
         cli.main(["search", "--index", idx, "--fastx", "x.fq"])
+    # --engine anchor needs the index's anchor tables, which `save` alone
+    # does not write
     with pytest.raises(SystemExit):
         cli.main(["search", "--index", idx, "--fastx", "x.fq",
                   "--device", "cpu", "--engine", "anchor"])
