@@ -18,7 +18,12 @@ checkout at first use. Phases, each printing one JSON line:
            1 Mbp genome (forced overflow, round-limit, overlap 0 and
            heavy-k-mer cases; 64 lanes against the host oracle); the pool
            kernel on a stream longer than its lane count, and against the
-           one-shot kernel under the same per-lane budget; the wavefront DP
+           one-shot kernel under the same per-lane budget; the FM kernel's
+           wide mode at limb widths 31 and 17 (high limbs zero, then
+           not), also against narrow K2; the wide anchor kernel, one shot
+           and in parked-phase waves, on the wide table variants over a
+           1 Mbp genome and a repeat-rich genome whose heavy anchors park
+           lanes (64 lanes against the host oracle); the wavefront DP
            kernel at the call stage's buckets (CIGARs against the host DP);
   run      the main path, ``cli run`` with the default engine choice, on a
            seed-pinned 40 Mbp diploid sample (the sample of
@@ -27,13 +32,16 @@ checkout at first use. Phases, each printing one JSON line:
            anchor engine through the pool. Then, on the same index, anchor
            tables and smoothed BAM, the one-shot anchor engine
            (``--engine anchor --no-pool``), the FM engine (``--engine
-           fm``) and the host engines (``--no-device``): the four
-           specifics.txt and VCF files must be identical, and recall and
-           precision are scored against the planted SVs. Each run's kernel
-           launches are counted from 0;
+           fm``) and the host engines (``--no-device``), and with the
+           JAX package's wide switch (``SVDSS_TPU_WIDE_ANCHOR=1``, its own
+           wide tables, default engine: the wide anchor engine in waves):
+           the five specifics.txt and VCF files must be identical, and
+           recall and precision are scored against the planted SVs. Each
+           run's kernel launches are counted from 0;
   timing   each kernel and its plain version timed with CUDA events on the
-           inputs the main path gave it, and the least time the card could
-           take for the same work.
+           inputs the main path gave it (K2's wide mode on the force-wide
+           table of the run's index with the FM run's reads), and the least
+           time the card could take for the same work.
 
 Then the card's nvidia-smi line, the kernel table as one JSON line, and
 last ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
@@ -430,6 +438,264 @@ def check_anchor(rng) -> list:
              "max_abs_err": max(err4, err43)}]
 
 
+PP_FIELDS = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
+
+
+def check_pingpong_wide(rng) -> dict:
+    """K2's wide instantiation against its plain version in all six fields,
+    at limb width 31 (the default; the high limbs are 0 below 2^31
+    symbols) and 17 (on this 2M-symbol index the high limbs are not 0),
+    on the read mix of check_pingpong with the overflow and step-budget
+    cases; and against narrow K2 on the same reads. At limb width 31 the
+    whole mix is held against narrow K2 alone (the timing phase holds it
+    against the plain version at the main path's inputs)."""
+    from svdss_tpu_torch.index.fmd import build_index
+    from svdss_tpu_torch.ops import pingpong
+    from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
+    from svdss_tpu_torch.pipeline.search import _bucket_len
+    from svdss_tpu_torch.utils.seq import encode_nt6
+
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, 1_000_000))
+    index = build_index({"g": g})
+    enc = [encode_nt6(r) for r in read_mix(g, rng) + long_reads(g, rng, 512)]
+    L = _bucket_len(max(len(e) for e in enc))
+    cap = max(128, L // 16)
+    seqs, lens = pingpong.pack_reads(enc, pad_to=L, device="cuda")
+    narrow = pingpong.batch_search(DeviceFMDIndex.from_host(index, "cuda"),
+                                   seqs, lens, cap=cap)
+    cases = []
+    for limb in (31, 17):
+        wide = DeviceFMDIndex.from_host(index, "cuda", force_wide=True,
+                                        limb_bits=limb)
+        high = bool((wide.fused[:, 6:8] != 0).any())
+        if high != (limb < 31):
+            raise RuntimeError(f"limb width {limb}: high limbs set = {high}")
+        for name, n, whole, kw in (
+                ("read mix + 512 long reads", len(enc), True, dict(cap=cap)),
+                ("cap=2 overflow", 64, False, dict(cap=2)),
+                ("max_iters=200 incomplete", 64, False,
+                 dict(cap=cap, max_iters=200))):
+            before = pingpong.launches
+            got = pingpong.batch_search(wide, seqs[:n], lens[:n], **kw)
+            torch.cuda.synchronize()
+            if pingpong.launches != before + 1:
+                raise RuntimeError("batch_search did not launch K2 (wide)")
+            case = {"case": f"limb {limb}: {name}", "lanes": n, "L": L,
+                    "cap": kw["cap"], "max_abs_err": 0,
+                    "overflow": int(got.overflow.sum()),
+                    "incomplete": int(got.incomplete.sum()),
+                    "iters": int(got.iters)}
+            if limb < 31 or not whole:
+                max_iters = kw.get("max_iters") or 8 * L + 64
+                want = pingpong.batch_search_plain(
+                    wide, seqs[:n], lens[:n], kw["cap"],
+                    -(-max_iters // pingpong.K_INNER))
+                case["max_abs_err"] = max_abs_diff(
+                    [getattr(got, f) for f in PP_FIELDS],
+                    [getattr(want, f) for f in PP_FIELDS])
+            else:
+                case["plain"] = "timing phase"
+            if whole:
+                case["vs_narrow_max_abs_err"] = max_abs_diff(
+                    [getattr(got, f) for f in PP_FIELDS],
+                    [getattr(narrow, f) for f in PP_FIELDS])
+            cases.append(case)
+    errs = [max(c["max_abs_err"], c.get("vs_narrow_max_abs_err", 0))
+            for c in cases]
+    return {"name": "pingpong_fm_wide", "cases": cases,
+            "mismatches": sum(e > 0 for e in errs), "max_abs_err": max(errs)}
+
+
+def repeat_genome(rng, copies: int, unit_len: int = 600,
+                  spacer: int = 800) -> str:
+    """5%-diverged copies of one unit between random spacers, after 3 kb of
+    random sequence (the genome of the JAX package's parked-wave tests)."""
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+    unit = rand(unit_len)
+    parts = [rand(3_000)]
+    for _ in range(copies):
+        c = list(unit)
+        for _ in range(unit_len // 20):
+            c[int(rng.integers(0, unit_len))] = "ACGT"[int(rng.integers(0,
+                                                                     4))]
+        parts += ["".join(c), rand(spacer)]
+    return "".join(parts)
+
+
+class Asked:
+    """A resolve_phases callback answering from the heavy store, keeping
+    every wave's parked lanes, anchors and directions."""
+
+    def __init__(self, resolver, encs):
+        self.resolver, self.encs, self.calls = resolver, encs, []
+
+    def __call__(self, lanes, ancs, dirbs):
+        self.calls.append((lanes.tolist(), ancs.tolist(), dirbs.tolist()))
+        return np.array([self.resolver(self.encs[int(ln)], int(a),
+                                       "left" if d == 1 else "right")
+                         for ln, a, d in zip(lanes, ancs, dirbs)],
+                        dtype=np.int32)
+
+
+def plain_wave_run(aw):
+    """The wave driver over K5's plain version on the card (the wrapper
+    takes the plain version only for CPU tensors)."""
+    class PlainWaves(aw.WideWaveRun):
+        def _wave(self, r0):
+            if self.chunks is None:
+                self.chunks = aw.read_chunks(self.seqs, self.lens)
+            aw.run_wave_plain(self.index, self.params, self.chunks,
+                              self.lens, self.state, self.out_qs, self.out_l,
+                              self.rounds, r0, self.cap, self.max_rounds,
+                              self.overlap, True, self.work)
+    return PlainWaves
+
+
+def check_anchor_wide(rng) -> dict:
+    """K5 against its plain version in all six fields and its four work
+    counts: one shot on the wide table variants over a 1 Mbp genome (fused
+    8|8 counts with uint8 lperm, right-order-only, 16|16 with uint16
+    lperm, unsorted buckets; N reads, overlap 0, cap 2, a small round
+    budget) and on a repeat-rich genome whose heavy anchors send lanes to
+    the host; and in parked-phase waves (the same waves asked of the heavy
+    store, park_limit 16 and 1, right-order-only), which must park lanes.
+    64 complete lanes against the host oracle."""
+    from svdss_tpu_torch.index.fmd import build_index
+    from svdss_tpu_torch.ops import anchor_wide_device as aw
+    from svdss_tpu_torch.ops.anchor_wide import (build_anchor_index_wide,
+                                                 make_heavy_resolver)
+    from svdss_tpu_torch.ops.pingpong import pack_reads
+    from svdss_tpu_torch.ops.pingpong_host import ping_pong_search
+    from svdss_tpu_torch.pipeline.search import _bucket_len
+    from svdss_tpu_torch.utils.seq import encode_nt6
+
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, 1_000_000))
+    fwd = encode_nt6(g)
+    enc = anchor_mix(fwd, rng) + [encode_nt6(r)
+                                  for r in long_reads(g, rng, 512)]
+    L = _bucket_len(max(len(e) for e in enc))
+    cap = max(128, L // 16)
+    seqs, lens = pack_reads(enc, pad_to=L, device="cuda")
+    rg = repeat_genome(rng, copies=200)
+    renc = anchor_mix(encode_nt6(rg), rng, n=96, L=2000)
+    rseqs, rlens = pack_reads(renc, device="cuda")
+
+    def tables(text, **build):
+        widx = build_anchor_index_wide(text, **build)
+        return widx, aw.build_device_anchor_wide(widx, "cuda")
+    sorted32 = tables(fwd.copy(), cmax=32)
+    cases = []
+
+    def one_shot(name, tab, s, ln, **kw):
+        _, (d, p) = tab
+        work = torch.zeros(4, dtype=torch.int64, device="cuda")
+        before = aw.launches
+        got = aw.batch_search_anchor_wide(d, p, s, ln, work=work, **kw)
+        torch.cuda.synchronize()
+        if aw.launches != before + 1:
+            raise RuntimeError("batch_search_anchor_wide did not launch K5")
+        state = aw.reset_state(s, ln)
+        oq = torch.zeros((s.shape[0], kw["cap"]), dtype=torch.int32,
+                         device="cuda")
+        ol, rounds = torch.zeros_like(oq), torch.zeros(
+            1, dtype=torch.int32, device="cuda")
+        plain_work = torch.zeros_like(work)
+        aw.run_wave_plain(d, p, aw.read_chunks(s, ln), ln, state, oq, ol,
+                          rounds, 0, kw["cap"], kw.get("max_rounds")
+                          or aw.default_max_rounds(s.shape[1]),
+                          kw.get("overlap", -1), False, plain_work)
+        want = aw.result_of(state, oq, ol, rounds)
+        cases.append({"case": name, "form": "one shot", "lanes": len(ln),
+                      "L+1": s.shape[1], "cap": kw["cap"],
+                      "max_abs_err": max_abs_diff(
+                          [getattr(got, f) for f in ANCHOR_FIELDS] + [work],
+                          [getattr(want, f) for f in ANCHOR_FIELDS]
+                          + [plain_work]),
+                      "overflow": int(got.overflow.sum()),
+                      "incomplete": int(got.incomplete.sum()),
+                      "iters": int(got.iters),
+                      "work": dict(zip(aw.WORK_FIELDS, work.tolist()))})
+        return got
+
+    def waves(name, tab, s, ln, encs, park_limit=16):
+        widx, (d, p) = tab
+        runs = []
+        for driver in (aw.WideWaveRun, plain_wave_run(aw)):
+            asked = Asked(make_heavy_resolver(widx), encs)
+            work = torch.zeros(4, dtype=torch.int64, device="cuda")
+            before = aw.launches
+            run = driver(d, p, s, ln, asked, cap=cap, park_limit=park_limit,
+                         work=work)
+            res = run.finish()
+            torch.cuda.synchronize()
+            runs.append((res, work, asked, run, aw.launches - before))
+        (got, work, asked, run, n_launch), (want, pwork, pasked, prun, _) = \
+            runs
+        if n_launch < len(asked.calls) + 1:
+            raise RuntimeError(f"{name}: {n_launch} K5 launches for "
+                               f"{len(asked.calls)} resolved waves")
+        err = max_abs_diff([getattr(got, f) for f in ANCHOR_FIELDS] + [work],
+                           [getattr(want, f) for f in ANCHOR_FIELDS]
+                           + [pwork])
+        if asked.calls != pasked.calls or run.n_waves != prun.n_waves:
+            err = max(err, 1)
+        cases.append({"case": name, "form": "waves", "lanes": len(ln),
+                      "L+1": s.shape[1], "cap": cap, "max_abs_err": err,
+                      "waves": run.n_waves, "parked_lanes": run.parked_lanes,
+                      "overflow": int(got.overflow.sum()),
+                      "incomplete": int(got.incomplete.sum()),
+                      "iters": int(got.iters),
+                      "work": dict(zip(aw.WORK_FIELDS, work.tolist()))})
+        return got
+
+    res = one_shot("sorted 8|8, anchor mix + 512 long reads", sorted32,
+                   seqs, lens, cap=cap)
+    one_shot("cap=2 overflow", sorted32, seqs[:64], lens[:64], cap=2)
+    one_shot("max_rounds=200 incomplete", sorted32, seqs[:64], lens[:64],
+             cap=cap, max_rounds=200)
+    one_shot("overlap=0", sorted32, seqs[:64], lens[:64], cap=cap, overlap=0)
+    for name, build in (("right-order-only", dict(cmax=32,
+                                                  sort_buckets="right")),
+                        ("16|16, uint16 lperm (cmax 2000)", dict(cmax=2000)),
+                        ("unsorted buckets", dict(cmax=32,
+                                                  sort_buckets=False))):
+        one_shot(name, tables(fwd.copy(), **build), seqs[:128], lens[:128],
+                 cap=cap)
+    waves("clean genome", sorted32, seqs[:64], lens[:64], enc)
+    rsorted = tables(encode_nt6(rg), k=10, cmax=12)
+    one_shot("repeats, cmax 12", rsorted, rseqs, rlens, cap=cap)
+    if not cases[-1]["incomplete"]:
+        raise RuntimeError("the heavy-k-mer case sent no lane to the host")
+    waves("repeats, cmax 12", rsorted, rseqs, rlens, renc)
+    waves("repeats, park_limit 1", rsorted, rseqs, rlens, renc, park_limit=1)
+    waves("repeats, right-order-only",
+          tables(encode_nt6(rg), k=10, cmax=12, sort_buckets="right"),
+          rseqs, rlens, renc)
+    parked = [c for c in cases if c["form"] == "waves"
+              and c["case"].startswith("repeats")]
+    if not all(c["waves"] >= 1 and c["parked_lanes"] >= 1 for c in parked):
+        raise RuntimeError("the repeat genome parked no lane")
+
+    # 64 complete lanes of the first case against the host oracle
+    index = build_index({"g": g})
+    n_sfs = res.n_sfs.cpu().numpy()
+    qs, ln = res.qs.cpu().numpy(), res.length.cpu().numpy()
+    done = ~(res.overflow | res.incomplete).cpu().numpy()
+    order = sorted((i for i in range(len(enc)) if done[i]),
+                   key=lambda i: len(enc[i]))[:64]
+    oracle_bad = 0
+    for i in order:
+        k = int(n_sfs[i])
+        got = list(zip(qs[i, :k].tolist(), ln[i, :k].tolist()))
+        oracle_bad += got != ping_pong_search(index, enc[i])
+    return {"name": "anchor_wide", "cases": cases,
+            "oracle_lanes": len(order), "oracle_mismatches": oracle_bad,
+            "mismatches": sum(c["max_abs_err"] > 0 for c in cases)
+            + oracle_bad,
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
 def dp_pairs(rng, n: int, bq: int, bt: int) -> list:
     """n (query, target) pairs for one call-stage bucket: targets of
     bt/2..bt symbols, queries carrying 0.5% SNVs and one 25-2000 bp
@@ -510,14 +776,20 @@ def check_wavefront(rng) -> dict:
 def phase_kernels(seed: int) -> dict:
     t0 = time.time()
     rng = np.random.default_rng(seed)
-    checks = [check_pingpong(rng), *check_anchor(rng), check_wavefront(rng)]
+    checks = [check_pingpong(rng), check_pingpong_wide(rng),
+              *check_anchor(rng), check_anchor_wide(rng),
+              check_wavefront(rng)]
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "tolerance": 0, "checks": checks})
     bad = [c["name"] for c in checks if c["mismatches"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
-    return {c["name"]: c["max_abs_err"] for c in checks}
+    errs = {c["name"]: c["max_abs_err"] for c in checks}
+    # K2's two instantiations are one kernel's
+    errs["pingpong_fm"] = max(errs["pingpong_fm"],
+                              errs.pop("pingpong_fm_wide"))
+    return errs
 
 
 # ------------------------------------------------------------------ run
@@ -580,13 +852,16 @@ STAGES = (("index", "svdss_tpu_torch.index.fmd", "build_index"),
           ("search", "svdss_tpu_torch.pipeline.search", "run_search"),
           ("anchor_upload", "svdss_tpu_torch.pipeline.search",
            "build_device_anchor"),
+          ("anchor_upload", "svdss_tpu_torch.pipeline.search",
+           "build_device_anchor_wide"),
           ("call", "svdss_tpu_torch.pipeline.call", "run_call"))
 
 # each kernel's launch counter (a module-level `launches`)
 KERNEL_MODULES = {"wavefront_dp": "svdss_tpu_torch.ops.align_dp",
                   "pingpong_fm": "svdss_tpu_torch.ops.pingpong",
                   "anchor_batch": "svdss_tpu_torch.ops.anchor_device",
-                  "anchor_pool": "svdss_tpu_torch.ops.anchor_pool"}
+                  "anchor_pool": "svdss_tpu_torch.ops.anchor_pool",
+                  "anchor_wide": "svdss_tpu_torch.ops.anchor_wide_device"}
 
 
 class StageTimer:
@@ -719,12 +994,13 @@ def expect(run: dict, label: str, launched: tuple, idle: tuple,
 
 def phase_run(wd: str, args) -> dict:
     from svdss_tpu_torch.ops import align_dp, anchor_pool
+    from svdss_tpu_torch.ops import anchor_wide_device as aw
     from svdss_tpu_torch.pipeline import search as search_mod
 
     sim = simulate(wd, args.seed)
     ref, bam = os.path.join(wd, "ref.fa"), os.path.join(wd, "reads.bam")
     dirs = {k: os.path.join(wd, k) for k in ("auto", "oneshot", "fm",
-                                              "host")}
+                                              "host", "wide")}
     common = ["--reference", ref, "--bam", bam,
               "--threads", str(os.cpu_count() or 4)]
 
@@ -740,6 +1016,10 @@ def phase_run(wd: str, args) -> dict:
                                 lambda idx, p, syms, offs, lens, **kw: (
                                     (lens.shape[0], kw["Lp1"], kw["cap"]),
                                     syms.numel())),
+             "anchor_wide": Spy(aw, "run_wave",
+                                lambda idx, p, seqs, lens, *a, **kw: (
+                                    (tuple(seqs.shape), a[5], a[8]),
+                                    seqs.numel())),
              "wavefront_dp": Spy(align_dp, "wavefront",
                                  lambda q, t, td, ti, lq, lt, p=None: (
                                      (q.shape[0], lq, lt),
@@ -752,7 +1032,7 @@ def phase_run(wd: str, args) -> dict:
             ("index", "anchor_build", "smooth", "anchor_load", "search",
              "anchor_upload", "call"))
         expect(runs["auto"], "auto run", ("anchor_pool", "wavefront_dp"),
-               ("anchor_batch", "pingpong_fm"),
+               ("anchor_batch", "pingpong_fm", "anchor_wide"),
                (r"search: anchor engine on cuda",
                 r"search: anchor pool on cuda"), (r"FM engine on",))
         # the other engines on hard links of the same index, anchor tables
@@ -768,19 +1048,41 @@ def phase_run(wd: str, args) -> dict:
              "--no-pool"], ("anchor_load", "search", "anchor_upload", "call"))
         expect(runs["oneshot"], "--no-pool run",
                ("anchor_batch", "wavefront_dp"),
-               ("anchor_pool", "pingpong_fm"),
+               ("anchor_pool", "pingpong_fm", "anchor_wide"),
                (r"search: anchor engine on cuda",), (r"anchor pool on",))
         runs["fm"] = run_cli(
             [*common, "--workdir", dirs["fm"], "--engine", "fm"],
             ("search", "call"))
         expect(runs["fm"], "--engine fm run", ("pingpong_fm", "wavefront_dp"),
-               ("anchor_batch", "anchor_pool"),
+               ("anchor_batch", "anchor_pool", "anchor_wide"),
                (r"search: FM engine on cuda",))
         runs["host"] = run_cli(
             [*common, "--workdir", dirs["host"], "--no-device"],
             ("search", "call"))
         expect(runs["host"], "--no-device run", (), tuple(KERNEL_MODULES),
                ())
+        # the JAX package's wide switch: wide forward-strand tables of its
+        # own, on hard links of the index and smoothed BAM; at 80M symbols
+        # the cost model takes the wide anchor engine, in waves (the
+        # tables carry the heavy store)
+        os.makedirs(dirs["wide"])
+        for f in ("index.fmd.npz", "smoothed.bam"):
+            os.link(os.path.join(dirs["auto"], f),
+                    os.path.join(dirs["wide"], f))
+        os.environ["SVDSS_TPU_WIDE_ANCHOR"] = "1"
+        try:
+            runs["wide"] = run_cli(
+                [*common, "--workdir", dirs["wide"]],
+                ("anchor_build", "anchor_load", "search", "anchor_upload",
+                 "call"))
+        finally:
+            del os.environ["SVDSS_TPU_WIDE_ANCHOR"]
+        expect(runs["wide"], "wide run", ("anchor_wide", "wavefront_dp"),
+               ("pingpong_fm", "anchor_batch", "anchor_pool"),
+               (r"index: WIDE anchor tables",
+                r"search: wide anchor engine on cuda .*parked-phase waves"),
+               (r"FM engine on", r"anchor pool on",
+                r"cost model picks FM"))
     finally:
         for spy in spies.values():
             spy.restore()
@@ -790,7 +1092,7 @@ def phase_run(wd: str, args) -> dict:
         want = open(os.path.join(dirs["host"], f), "rb").read()
         same[f] = len(want) > 0 and all(
             open(os.path.join(dirs[k], f), "rb").read() == want
-            for k in ("auto", "oneshot", "fm"))
+            for k in ("auto", "oneshot", "fm", "wide"))
     quality = score_calls(os.path.join(dirs["auto"], "variations.vcf"),
                           sim["truth"])
     info = {"phase": "run", "genome_mbp": GENOME_MBP, "coverage": COVERAGE,
@@ -811,7 +1113,9 @@ def phase_run(wd: str, args) -> dict:
     launches = dict(runs["auto"]["launches"])
     launches["anchor_batch"] = runs["oneshot"]["launches"]["anchor_batch"]
     launches["pingpong_fm"] = runs["fm"]["launches"]["pingpong_fm"]
-    return {"launches": launches, "spies": spies}
+    launches["anchor_wide"] = runs["wide"]["launches"]["anchor_wide"]
+    return {"launches": launches, "spies": spies,
+            "index_path": os.path.join(dirs["auto"], "index.fmd.npz")}
 
 
 # --------------------------------------------------------------- timing
@@ -830,9 +1134,12 @@ def live_lanes(seqs, lens):
     return seqs[live], lens[live]
 
 
-def time_pingpong(spy: Spy) -> dict:
+def time_pingpong(spy: Spy, index=None) -> dict:
+    """K2 on the FM run's largest launch input; with `index`, on that table
+    instead (the wide mode), and then also against narrow K2's output."""
     from svdss_tpu_torch.ops import pingpong
-    _, (index, seqs, lens), kw = spy.best
+    _, (narrow, seqs, lens), kw = spy.best
+    index = narrow if index is None else index
     Q, Lp1 = seqs.shape
     cap = kw["cap"]
     got = pingpong.batch_search(index, seqs, lens, **kw)
@@ -849,9 +1156,15 @@ def time_pingpong(spy: Spy) -> dict:
     plain_ms = once_ms(lambda: holder.setdefault(
         "r", pingpong.batch_search_plain(index, seqs, lens, cap, max_outer,
                                          kw.get("overlap", -1))))
-    fields = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
-    err = max_abs_diff([getattr(got, f) for f in fields],
-                       [getattr(holder["r"], f) for f in fields])
+    err = max_abs_diff([getattr(got, f) for f in PP_FIELDS],
+                       [getattr(holder["r"], f) for f in PP_FIELDS])
+    vs_narrow = {}
+    if index is not narrow:
+        want = pingpong.batch_search(narrow, seqs, lens, **kw)
+        vs_narrow["vs_narrow_max_abs_err"] = max_abs_diff(
+            [getattr(got, f) for f in PP_FIELDS],
+            [getattr(want, f) for f in PP_FIELDS])
+        err = max(err, vs_narrow["vs_narrow_max_abs_err"])
     # bytes: each live lane's symbols and its sentinel once, its length
     # once, the rows the walk touches once (never more than the whole
     # table), the emissions written (8 B each) and the per-lane scalars
@@ -861,10 +1174,11 @@ def time_pingpong(spy: Spy) -> dict:
               + 8 * int(live.n_sfs.sum()) + 6 * len(llens) + 4)
     bms, by = bound(nbytes, steps * OPS_PER_RANK_STEP)
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap}",
+            "wide": index.wide, "limb_bits": index.limb_bits,
             "rank_steps": steps,
             "read_bytes": read_bytes, "bound_bytes": nbytes,
             "table_MiB": table / 2 ** 20, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err, **vs_narrow}
 
 
 def time_wavefront(spy: Spy) -> dict:
@@ -968,11 +1282,89 @@ def time_anchor_pool(spy: Spy) -> dict:
             "max_abs_err": err}
 
 
+def time_anchor_wide(spy: Spy) -> dict:
+    """K5 on the wide run's largest launch: the same wave relaunched on
+    fresh copies of the lane state it was given."""
+    from svdss_tpu_torch.ops import anchor_wide_device as aw
+    _, args, _ = spy.best
+    (index, params, seqs, lens, state, oq, ol, rounds, r0, cap, max_rounds,
+     overlap, park) = args[:13]
+    Q, Lp1 = seqs.shape
+
+    def fresh():
+        return state.clone(), oq.clone(), ol.clone(), rounds.clone()
+
+    def launch(st, s=seqs, ln=lens, work=None):
+        aw.run_wave(index, params, s, ln, *st, r0, cap, max_rounds, overlap,
+                    park, work)
+    got = fresh()
+    launch(got)
+    # the work the reads need: the live lanes alone (lanes are
+    # independent)
+    live = lens > 1
+    lst = (state[:, live].contiguous(), oq[live].contiguous(),
+           ol[live].contiguous(), rounds.clone())
+    work = torch.zeros(4, dtype=torch.int64, device=seqs.device)
+    launch(lst, seqs[live].contiguous(), lens[live].contiguous(), work)
+    torch.cuda.synchronize()
+    work = work.tolist()
+    copies = [fresh() for _ in range(6)]
+    launch(copies[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for st in copies[1:]:
+        launch(st)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / 5
+    plain = fresh()
+    chunks = aw.read_chunks(seqs, lens)
+    plain_ms = once_ms(lambda: aw.run_wave_plain(
+        index, params, chunks, lens, *plain, r0, cap, max_rounds, overlap,
+        park))
+    mine, want = aw.result_of(*got), aw.result_of(*plain)
+    err = max_abs_diff([getattr(mine, f) for f in ANCHOR_FIELDS],
+                       [getattr(want, f) for f in ANCHOR_FIELDS])
+    # bytes: each live read's symbols once, its length and its lane state
+    # (read and written back), one 32-bit table word per table row read
+    # (capped at the tables), 2 bits per compared text symbol and a
+    # badrow word per compare (capped at the text), 8 B per emission
+    # written, the round count
+    rounds_n, rows, text_rows, syms = work
+    llens = lens[live]
+    n_live = int(live.sum())
+    tables = sum(t.numel() * 4 for t in (index.ct, index.aux,
+                                          index.pospairs, index.bms,
+                                          index.lperm))
+    text = (index.text2.numel() + index.badrow.numel()) * 4
+    emitted = int(lst[0][aw.S["nsfs"]].sum())
+    nbytes = (int((llens.long() + 1).sum()) + 4 * n_live
+              + 2 * 4 * len(aw.STATE) * n_live + min(tables, 4 * rows)
+              + min(text, -(-syms // 4) + 4 * text_rows) + 8 * emitted + 4)
+    bms, by = bound(nbytes, rounds_n * OPS_PER_ANCHOR_ROUND
+                    + syms * OPS_PER_COMPARED_SYMBOL)
+    return {"shape": f"Q={Q} ({n_live} live) L+1={Lp1} cap={cap} "
+                     f"park={park} r0={r0}",
+            "work": dict(zip(aw.WORK_FIELDS, work)),
+            "iters": int(mine.iters), "bound_bytes": nbytes,
+            "tables_GiB": (tables + text) / 2 ** 30, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": err}
+
+
 def phase_timing(run: dict) -> dict:
+    from svdss_tpu_torch.index.fmd import FMDIndex
+    from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
     spies = run["spies"]
+    wide = DeviceFMDIndex.from_host(FMDIndex.load(run["index_path"]),
+                                    "cuda", force_wide=True)
     out = {"pingpong_fm": time_pingpong(spies["pingpong_fm"]),
+           "pingpong_fm_wide": time_pingpong(spies["pingpong_fm"], wide),
            "anchor_batch": time_anchor_batch(spies["anchor_batch"]),
            "anchor_pool": time_anchor_pool(spies["anchor_pool"]),
+           "anchor_wide": time_anchor_wide(spies["anchor_wide"]),
            "wavefront_dp": time_wavefront(spies["wavefront_dp"])}
     emit({"phase": "timing", **out})
     bad = [k for k, v in out.items() if v["max_abs_err"]]
@@ -991,6 +1383,8 @@ KERNELS = (
      "svdss_tpu/ops/anchor_jax.py:646"),
     ("anchor_pool", "svdss_tpu_torch/csrc/anchor.cu",
      "svdss_tpu/ops/anchor_pool.py:114"),
+    ("anchor_wide", "svdss_tpu_torch/csrc/anchor_wide.cu",
+     "svdss_tpu/ops/anchor_wide_jax.py:1144"),
     ("wavefront_dp", "svdss_tpu_torch/csrc/wavefront.cu",
      "svdss_tpu/ops/align_pallas.py:181"),
 )

@@ -13,9 +13,10 @@ cpu`` asks for the plain PyTorch versions of the kernels on the CPU;
 ``--engine fm``) and ``run`` (on the device path, unless ``--engine fm``)
 also build the anchor-engine tables beside the FMD index
 (``<index>.anchor.npz``), and the search takes its engine from them as the
-JAX package does. Single process: the multi-host sharding of the JAX
-package is not ported yet, and neither is its wide anchor engine, so
-``run`` builds no wide anchor tables and searches such genomes with FM.
+JAX package does: from 1.2G two-strand symbols, or with
+``SVDSS_TPU_WIDE_ANCHOR=1`` at any size, those are the wide forward-strand
+tables of the wide anchor engine. Single process: the multi-host sharding
+of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -116,8 +117,10 @@ def _build_anchor(chroms, index_path: str, cmax: int) -> None:
         widx = build_anchor_index_wide(fwd, cmax=max(cmax, WIDE_CMAX))
         widx.save(_anchor_path(index_path))
         logger.info("index: WIDE anchor tables (k=%d, %d fwd symbols) "
-                    "built in %.1fs -> %s", widx.k, widx.n,
-                    _time.time() - t0, _anchor_path(index_path))
+                    "built in %.1fs, peak RSS %.2f GiB -> %s", widx.k,
+                    widx.n, _time.time() - t0, resource.getrusage(
+                        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+                    _anchor_path(index_path))
         return
     aidx = build_anchor_index(genome_text(chroms), cmax=cmax)
     aidx.save(_anchor_path(index_path))
@@ -249,17 +252,6 @@ def cmd_run(args) -> int:
     import time as _time
     chroms = load_chromosomes(args.reference)
     want_anchor = cfg.use_device and cfg.engine != "fm"
-    if want_anchor and _wide_anchor(chroms):
-        # the wide anchor engine is not ported yet: its tables, the largest
-        # host build of the pipeline, would serve nothing
-        if cfg.engine == "anchor":
-            raise SystemExit("--engine anchor: this genome takes the wide "
-                             "anchor engine, which is not ported yet (use "
-                             "--engine fm or auto)")
-        logger.warning("run: this genome takes wide anchor tables, whose "
-                       "engine is not ported yet; building none, the "
-                       "search takes the FM engine")
-        want_anchor = False
     if os.path.exists(index_path):
         logger.info("run: reusing existing index %s", index_path)
         index = FMDIndex.load(index_path)

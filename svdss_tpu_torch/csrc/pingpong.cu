@@ -1,12 +1,19 @@
-// Kernel K2 (pingpong_fm): ping-pong SFS search with the FM rank walk,
-// narrow mode (index < 2^31 symbols), one thread per read lane.
+// Kernel K2 (pingpong_fm): ping-pong SFS search with the FM rank walk, one
+// thread per read lane, in two instantiations: narrow (index < 2^31
+// symbols, int32 coordinates) and wide (int64 coordinates, the fused rows'
+// checkpoints split into a low limb of `limb_bits` bits and a 5-bit high
+// limb a symbol in columns 6 and 7; C as int64).
 //
 // Replaces svdss_tpu/ops/pingpong_jax.py:117 batch_search (an XLA
-// lockstep while-loop: step :185, outer body :314) and the rank step it
-// runs, svdss_tpu/ops/fmd_jax.py:372 extend_rank_step. Same results, field
-// for field: qs/length in emission order, n_sfs = min(count, cap),
-// overflow checked every 48 steps, incomplete = still active at the step
-// budget, iters = 48 x the most 48-step blocks any lane ran.
+// lockstep while-loop: step :185, outer body :314; wide branches :156-158,
+// :259-262) and the rank step it runs, svdss_tpu/ops/fmd_jax.py:372
+// extend_rank_step (wide branch :405-479). Same results, field for field:
+// qs/length in emission order, n_sfs = min(count, cap), overflow checked
+// every 48 steps, incomplete = still active at the step budget, iters = 48
+// x the most 48-step blocks any lane ran. The TPU split every coordinate
+// into two int32 limbs (its int64 is emulated); here a coordinate is one
+// int64 register and only the table's checkpoints carry limbs. A table past
+// 2^31 symbols has more than 16.7M rows, so row offsets are size_t.
 //
 // What bounds it on an H100: each step of a lane is one dependent read of
 // a 192-byte fused row at a data-dependent address (the FM walk), then
@@ -52,17 +59,31 @@ __device__ __forceinline__ uint32_t nib_mask_lt(int bound, int w) {
   return full | (w < (bound & 31) ? (8u << (4 * k)) : 0u);
 }
 
+// Checkpoint count of symbol c in a fused row: the int32 column, or in wide
+// mode that low limb joined with the symbol's 5-bit high limb of column 6.
+template <bool WIDE>
+__device__ __forceinline__ long long occ_at(const int32_t* row, int c,
+                                            int limb_bits) {
+  const long long lo = __ldg(row + c);
+  if (!WIDE) return lo;
+  const long long hi = ((uint32_t)__ldg(row + 6) >> (5 * c)) & 31u;
+  return lo + (hi << limb_bits);
+}
+
+// Coord is the lane's coordinate type: int (narrow) or long long (wide).
+template <typename Coord, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 pingpong_fm_kernel(const int32_t* __restrict__ fused,
-                   const int32_t* __restrict__ Cg,
+                   const Coord* __restrict__ Cg,
                    const uint8_t* __restrict__ seqs,
                    const int32_t* __restrict__ lens,
                    int Q, int Lp1, int cap, int max_outer, int overlap,
+                   int limb_bits,
                    int32_t* __restrict__ out_qs, int32_t* __restrict__ out_l,
                    int32_t* __restrict__ n_sfs, uint8_t* __restrict__ ovf_o,
                    uint8_t* __restrict__ inc_o, int32_t* __restrict__ iters,
                    unsigned long long* __restrict__ work) {
-  __shared__ int C[8];
+  __shared__ Coord C[8];
   if (threadIdx.x < 8) C[threadIdx.x] = Cg[threadIdx.x];
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -75,9 +96,10 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
   bool active = len >= 1;
   int begin = len - 1, end = 0, dir = 0;   // dir 0 = backward, 1 = forward
   const int c0 = active ? P[begin] : 0;
-  int pos = C[c0], sz = C[c0 + 1] - C[c0];
+  Coord pos = C[c0], sz = C[c0 + 1] - C[c0];
   bool pend = false;
-  int p_rank = 0, count = 0, blocks = 0;
+  Coord p_rank = 0;
+  int count = 0, blocks = 0;
   long long rank_steps = 0;
   bool overflow = false;
 
@@ -100,18 +122,18 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
       // runs it as a 0-width query at position 0
       const bool do_rank = do_ext && !sent;
       rank_steps += do_rank;
-      const int lo = do_rank ? pos : 0;
-      const int szm = do_rank ? sz : 0;
-      const int off_lo = lo & (DEV_BLOCK - 1);
-      const int off_hi = off_lo + szm;
-      const int hi = lo + szm;
+      const Coord lo = do_rank ? pos : 0;
+      const Coord szm = do_rank ? sz : 0;
+      const int off_lo = (int)(lo & (DEV_BLOCK - 1));
+      const Coord off_hi = off_lo + szm;
+      const Coord hi = lo + szm;
       const bool near = off_hi <= SPAN;
-      const int m_hi = min(off_hi, SPAN);
-      const int blk = pend ? (hi >> 7) : (lo >> 7);
-      const int m_a = pend ? (hi & (DEV_BLOCK - 1)) : off_lo;
+      const int m_hi = (int)(off_hi < SPAN ? off_hi : SPAN);
+      const Coord blk = pend ? (hi >> 7) : (lo >> 7);
+      const int m_a = (int)(pend ? (hi & (DEV_BLOCK - 1)) : off_lo);
       const int32_t* row = fused + (size_t)blk * ROW_WORDS;
       const uint32_t cpat = (uint32_t)c_sel * 0x11111111u;
-      int anchor = __ldg(row + c_sel);
+      Coord anchor = (Coord)occ_at<WIDE>(row, c_sel, limb_bits);
       int cnt = 0;
       const int4* wv = reinterpret_cast<const int4*>(row + OCC_COLS);
 #pragma unroll
@@ -130,9 +152,9 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
         }
       }
       bool complete = pend || near;
-      const int rank_lo = pend ? p_rank : anchor;
-      int szn = pend ? anchor - p_rank : cnt;
-      const int posn = C[c_sel] + rank_lo;
+      const Coord rank_lo = pend ? p_rank : anchor;
+      Coord szn = pend ? anchor - p_rank : (Coord)cnt;
+      const Coord posn = C[c_sel] + rank_lo;
       pend = do_rank && !near && !pend;
       p_rank = anchor;
       if (sent) szn = 0;
@@ -144,7 +166,7 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
       const bool f_exit = !is_bwd && !fwd_can;
       int begin1 = upd_b ? begin - 1 : begin;
       int end1 = upd_f ? end + 1 : end;
-      int sz1 = sz;
+      Coord sz1 = sz;
       if (do_ext && complete) {
         pos = posn;
         sz1 = szn;
@@ -202,25 +224,45 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
   if (work) atomicAdd(work, (unsigned long long)rank_steps);
 }
 
+template <typename Coord, bool WIDE>
+void launch(const void* fused, const void* C, const void* seqs,
+            const void* lens, int Q, int Lp1, int cap, int max_outer,
+            int overlap, int limb_bits, void* out_qs, void* out_l,
+            void* n_sfs, void* overflow, void* incomplete, void* iters,
+            void* work, cudaStream_t s) {
+  pingpong_fm_kernel<Coord, WIDE>
+      <<<(Q + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+          static_cast<const int32_t*>(fused), static_cast<const Coord*>(C),
+          static_cast<const uint8_t*>(seqs),
+          static_cast<const int32_t*>(lens), Q, Lp1, cap, max_outer,
+          overlap, limb_bits, static_cast<int32_t*>(out_qs),
+          static_cast<int32_t*>(out_l), static_cast<int32_t*>(n_sfs),
+          static_cast<uint8_t*>(overflow), static_cast<uint8_t*>(incomplete),
+          static_cast<int32_t*>(iters),
+          static_cast<unsigned long long*>(work));
+}
+
 }  // namespace
 
+// limb_bits 0: narrow table, C int32[8]; else wide, C int64[8].
 extern "C" int svdss_pingpong_fm(const void* fused, const void* C,
                                  const void* seqs, const void* lens, int Q,
                                  int Lp1, int cap, int max_outer, int overlap,
-                                 void* out_qs, void* out_l, void* n_sfs,
-                                 void* overflow, void* incomplete,
-                                 void* iters, void* work, void* stream) {
+                                 int limb_bits, void* out_qs, void* out_l,
+                                 void* n_sfs, void* overflow,
+                                 void* incomplete, void* iters, void* work,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(iters, 0, sizeof(int32_t), s);
   if (Q > 0) {
-    pingpong_fm_kernel<<<(Q + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-        static_cast<const int32_t*>(fused), static_cast<const int32_t*>(C),
-        static_cast<const uint8_t*>(seqs), static_cast<const int32_t*>(lens),
-        Q, Lp1, cap, max_outer, overlap, static_cast<int32_t*>(out_qs),
-        static_cast<int32_t*>(out_l), static_cast<int32_t*>(n_sfs),
-        static_cast<uint8_t*>(overflow), static_cast<uint8_t*>(incomplete),
-        static_cast<int32_t*>(iters),
-        static_cast<unsigned long long*>(work));
+    if (limb_bits)
+      launch<long long, true>(fused, C, seqs, lens, Q, Lp1, cap, max_outer,
+                              overlap, limb_bits, out_qs, out_l, n_sfs,
+                              overflow, incomplete, iters, work, s);
+    else
+      launch<int, false>(fused, C, seqs, lens, Q, Lp1, cap, max_outer,
+                         overlap, 0, out_qs, out_l, n_sfs, overflow,
+                         incomplete, iters, work, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""FMD index on the device (PyTorch), narrow mode (n < 2^31).
+"""FMD index on the device (PyTorch), narrow and wide mode.
 
 The device table is the JAX package's fused layout, row for row:
 
@@ -13,6 +13,20 @@ The device table is the JAX package's fused layout, row for row:
                     p // 32
   ``C`` int32[8] — cumulative symbol counts.
 
+Coordinate widths, two modes chosen by index size as the JAX package
+chooses them:
+
+  * **narrow** (n < 2^31): every count is a plain int32, as above.
+  * **wide** (n >= 2^31, or ``force_wide``; up to 2^36 symbols, a whole
+    two-strand human genome is ~6.2G): the checkpoint counts split into a
+    low limb of ``limb_bits`` bits (31 by default) in the usual columns and
+    a high limb of 5 bits a symbol packed into the spare columns 6 (occ)
+    and 7 (order prefix), so rows keep their size and traffic. ``C`` then
+    holds the full counts as int64. The plain versions and the kernel
+    decode the limbs and compute in int64 coordinates; the limb width is a
+    field of the table so that tests can shrink it and make the high limbs
+    non-zero on a small genome.
+
 An extension needs ranks at both interval endpoints (lo, hi = lo + sz);
 because each row spans 256 symbols, both resolve from the one row at lo
 whenever off(lo) + sz <= 256, and a wider extension takes a second step
@@ -25,7 +39,7 @@ these serve the CPU path, the tests, and the kernel's on-card check.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,11 +57,14 @@ LOG_BLOCK = 7
 OCC_COLS = 16
 BWT_WORDS = SPAN // 8
 ROW_WORDS = OCC_COLS + BWT_WORDS
+LIMB_BITS = 31   # wide mode's default low-limb width
 
 
-def fused_from_host(idx: FMDIndex) -> np.ndarray:
-    """The fused [nblk, 48] int32 table of a narrow index, built in
-    bounded-memory chunks."""
+def fused_from_host(idx: FMDIndex, limb_bits: Optional[int] = None
+                    ) -> np.ndarray:
+    """The fused [nblk, 48] int32 table of an index, built in
+    bounded-memory chunks: narrow, or wide with `limb_bits`-bit low limbs
+    and 5-bit high limbs in columns 6 and 7."""
     nblk = idx.n // DEV_BLOCK + 1
     out = np.zeros((nblk, ROW_WORDS), dtype=np.int32)
     # one extra zero block so every row's 256-symbol span is in bounds
@@ -73,28 +90,55 @@ def fused_from_host(idx: FMDIndex) -> np.ndarray:
         sel = [c for c in range(6) if _ORD_NP[c] < k]
         if sel:
             ord6_pre[:, k] = occ6[:, sel].sum(axis=1)
-    out[:, :6] = occ6
-    out[:, 8:14] = ord6_pre
+    if limb_bits is None:
+        assert occ6.max() < 2**31
+        out[:, :6] = occ6
+        out[:, 8:14] = ord6_pre
+        return out
+    assert occ6.max() < 2**(limb_bits + 5), \
+        "wide mode is limited to 5-bit high limbs"
+    mask = (1 << limb_bits) - 1
+    out[:, :6] = occ6 & mask
+    out[:, 8:14] = ord6_pre & mask
+    for c in range(6):
+        out[:, 6] |= ((occ6[:, c] >> limb_bits) << (5 * c)).astype(np.int32)
+        out[:, 7] |= ((ord6_pre[:, c] >> limb_bits) << (5 * c)).astype(
+            np.int32)
     return out
 
 
 class DeviceFMDIndex(NamedTuple):
-    """FMD index resident in device memory (narrow mode)."""
+    """FMD index resident in device memory. ``limb_bits is None`` is
+    narrow mode (int32 counts and C); otherwise wide mode, with the low
+    limbs `limb_bits` wide and C as int64 full counts."""
     fused: torch.Tensor      # [nblk, 48] int32
-    C: torch.Tensor          # [8] int32 cumulative counts
+    C: torch.Tensor          # [8] cumulative counts: int32, int64 if wide
+    limb_bits: Optional[int] = None
 
     @classmethod
-    def from_host(cls, idx: FMDIndex, device=None) -> "DeviceFMDIndex":
-        if idx.n >= 2**31:
-            raise NotImplementedError(
-                "wide-mode FMD tables (n >= 2^31) are not ported yet")
-        return cls.from_arrays(fused_from_host(idx), idx.C, device)
+    def from_host(cls, idx: FMDIndex, device=None, force_wide: bool = False,
+                  limb_bits: int = LIMB_BITS) -> "DeviceFMDIndex":
+        """The device table of a host index: wide when the index holds
+        2^31 symbols or more, or when `force_wide` asks for it."""
+        if idx.n >= 2**36:
+            raise ValueError("one index is limited to 2^36 symbols")
+        if not (force_wide or idx.n >= 2**31):
+            return cls.from_arrays(fused_from_host(idx), idx.C, device)
+        # the widest interval is one symbol's count; sizes stay below 2^32
+        if int(np.diff(np.asarray(idx.C, dtype=np.int64)).max()) >= 2**32:
+            raise ValueError("a symbol count past 2^32 does not fit wide mode")
+        return cls.from_arrays(fused_from_host(idx, limb_bits), idx.C,
+                               device, limb_bits=limb_bits)
 
     @classmethod
-    def from_arrays(cls, fused: np.ndarray, C: np.ndarray,
-                    device=None) -> "DeviceFMDIndex":
+    def from_arrays(cls, fused: np.ndarray, C: np.ndarray, device=None,
+                    C_hi: Optional[np.ndarray] = None,
+                    limb_bits: Optional[int] = None) -> "DeviceFMDIndex":
         """Wrap an existing fused table and C (e.g. the JAX package's
-        DeviceFMDIndex arrays, so both engines read one table)."""
+        DeviceFMDIndex arrays, so both engines read one table). A wide
+        table comes with `limb_bits`, or with the JAX package's split C:
+        `C` the low limbs and `C_hi` the high limbs (limb width 31 unless
+        `limb_bits` says otherwise)."""
         dev = resolve_device(device)
         fused = np.ascontiguousarray(fused, dtype=np.int32)
         if not fused.flags.writeable:       # e.g. a view of a JAX array
@@ -102,10 +146,23 @@ class DeviceFMDIndex(NamedTuple):
         C = np.asarray(C, dtype=np.int64)
         if fused.ndim != 2 or fused.shape[1] != ROW_WORDS:
             raise ValueError(f"fused must be [nblk, {ROW_WORDS}]")
-        if C.shape != (8,) or C.max() >= 2**31:
-            raise ValueError("C must be 8 counts below 2^31 (narrow mode)")
+        if C_hi is not None:
+            limb_bits = LIMB_BITS if limb_bits is None else limb_bits
+            C = C + (np.asarray(C_hi, dtype=np.int64) << limb_bits)
+        if C.shape != (8,):
+            raise ValueError("C must hold 8 counts")
+        if limb_bits is None:
+            if C.max() >= 2**31:
+                raise ValueError("C past 2^31 needs wide mode (limb_bits)")
+            C = C.astype(np.int32)
+        elif not 1 <= limb_bits <= 31:
+            raise ValueError("limb_bits must be in [1, 31]")
         return cls(fused=torch.from_numpy(fused).to(dev),
-                   C=torch.from_numpy(C.astype(np.int32)).to(dev))
+                   C=torch.from_numpy(C).to(dev), limb_bits=limb_bits)
+
+    @property
+    def wide(self) -> bool:
+        return self.limb_bits is not None
 
     @property
     def device(self) -> torch.device:
@@ -126,10 +183,15 @@ def lookup_C(index: DeviceFMDIndex, c: torch.Tensor) -> torch.Tensor:
     return index.C[c.long()]
 
 
-def _unpack_rows(rows: torch.Tensor):
-    """[R, 48] fused rows -> (occ [R, 16], sym [R, 256] int32), column c of
-    sym being span position c."""
-    occ = rows[:, :OCC_COLS]
+def _unpack_rows(index: DeviceFMDIndex, rows: torch.Tensor):
+    """[R, 48] fused rows -> (occ [R, 6], sym [R, 256] int32): the occ
+    checkpoints (int64 full counts in wide mode, the limbs joined) and
+    column c of sym being span position c."""
+    occ = rows[:, :6]
+    if index.wide:
+        hi = (rows[:, 6:7] >> (5 * torch.arange(
+            6, device=rows.device, dtype=torch.int32))) & 31
+        occ = occ.to(torch.int64) + (hi.to(torch.int64) << index.limb_bits)
     rep = rows[:, OCC_COLS:].repeat(1, 8)
     shifts = (torch.arange(SPAN, device=rows.device,
                            dtype=torch.int32) // BWT_WORDS) * 4
@@ -138,13 +200,14 @@ def _unpack_rows(rows: torch.Tensor):
 
 def rank6(index: DeviceFMDIndex, pos: torch.Tensor) -> torch.Tensor:
     """Counts of all 6 symbols in BWT[0:pos] for a batch of positions
-    (pos [Q] int32, 0 <= pos <= n). Returns [Q, 6] int32."""
-    occ, sym = _unpack_rows(index.fused[(pos >> LOG_BLOCK).long()])
+    (pos [Q], 0 <= pos <= n; int64 past 2^31). Returns [Q, 6], int32 in
+    narrow mode and int64 in wide mode."""
+    occ, sym = _unpack_rows(index, index.fused[(pos >> LOG_BLOCK).long()])
     iota = torch.arange(SPAN, device=pos.device, dtype=torch.int32)
     in_range = iota[None, :] < (pos & (DEV_BLOCK - 1))[:, None]
     c6 = torch.arange(6, device=pos.device, dtype=torch.int32)
     eq = (sym[:, :, None] == c6[None, None, :]) & in_range[:, :, None]
-    return occ[:, :6] + eq.sum(dim=1, dtype=torch.int32)
+    return occ + eq.sum(dim=1, dtype=occ.dtype)
 
 
 def extend_rank_step(index: DeviceFMDIndex, pos, sz, c_sel, do, pend,
@@ -158,7 +221,11 @@ def extend_rank_step(index: DeviceFMDIndex, pos, sz, c_sel, do, pend,
     rank_c(pos) in p_rank and raises pend; step B (the caller leaves the
     lane's state untouched in between) reads the row at pos + sz and
     completes. Returns (pos_n, sz_n, complete, pend_next, p_rank_next);
-    lanes with complete=False must not apply pos/sz nor advance."""
+    lanes with complete=False must not apply pos/sz nor advance.
+
+    In wide mode pos, sz and p_rank are int64 and so are the results: the
+    JAX package's limb pairs joined into one coordinate (its two-step
+    extension and its near test are the same)."""
     lo = torch.where(do, pos, 0)
     szm = torch.where(do, sz, 0)
     off_lo = lo & (DEV_BLOCK - 1)
@@ -169,13 +236,13 @@ def extend_rank_step(index: DeviceFMDIndex, pos, sz, c_sel, do, pend,
     blk = torch.where(pend, hi >> LOG_BLOCK, lo >> LOG_BLOCK)
     # rank at lo normally, at hi when completing a two-step extension
     m_a = torch.where(pend, hi & (DEV_BLOCK - 1), off_lo)
-    occ, sym = _unpack_rows(index.fused[blk.long()])
+    occ, sym = _unpack_rows(index, index.fused[blk.long()])
     iota = torch.arange(SPAN, device=pos.device, dtype=torch.int32)[None, :]
     eq = sym == c_sel[:, None]
     anchor = (occ.gather(1, c_sel[:, None].long())[:, 0]
-              + (eq & (iota < m_a[:, None])).sum(dim=1, dtype=torch.int32))
+              + (eq & (iota < m_a[:, None])).sum(dim=1, dtype=occ.dtype))
     cnt = (eq & (iota >= off_lo[:, None]) & (iota < m_hi[:, None])).sum(
-        dim=1, dtype=torch.int32)
+        dim=1, dtype=occ.dtype)
     complete = pend | near
     pend_next = do & ~near & ~pend
     rank_lo = torch.where(pend, p_rank, anchor)

@@ -1,4 +1,4 @@
-"""Batched ping-pong SFS search on the device (FM rank walk, narrow mode).
+"""Batched ping-pong SFS search on the device (FM rank walk).
 
 Every lane is one read and a small state machine:
 
@@ -17,6 +17,10 @@ also give the JAX package's `pingpong_jax.batch_search` results field for
 field. With any other overlap the JAX kernel re-seeds a restart from
 P[end - 1] instead of P[begin_new] and leaves the oracle; these follow
 the oracle.
+
+A wide table (``DeviceFMDIndex.wide``, n >= 2^31 or forced) runs the same
+search with int64 coordinates: the kernel's wide instantiation on the
+card, int64 tensors in the plain version.
 """
 
 from __future__ import annotations
@@ -105,11 +109,12 @@ def _launch(index, seqs, lens, cap, max_outer, overlap, work):
     if work is not None and (work.dtype != torch.int64
                              or work.device != dev):
         raise TypeError("work must be an int64 tensor on the seqs device")
+    c_type = torch.int64 if index.wide else torch.int32
     if (index.fused.dtype != torch.int32 or index.fused.dim() != 2
             or index.fused.shape[1] != 48 or not index.fused.is_contiguous()
-            or index.C.dtype != torch.int32 or index.C.shape != (8,)):
+            or index.C.dtype != c_type or index.C.shape != (8,)):
         raise TypeError("index must hold a contiguous int32 [nblk, 48] "
-                        "table and an int32 [8] C")
+                        "table and an [8] C (int32, int64 if wide)")
     lib = load_kernels()["pingpong"]
     out_qs = torch.empty((Q, cap), dtype=torch.int32, device=dev)
     out_l = torch.empty((Q, cap), dtype=torch.int32, device=dev)
@@ -120,8 +125,9 @@ def _launch(index, seqs, lens, cap, max_outer, overlap, work):
     rc = lib.svdss_pingpong_fm(
         index.fused.data_ptr(), index.C.data_ptr(), seqs.data_ptr(),
         lens.data_ptr(), Q, Lp1, cap, max_outer, overlap,
-        out_qs.data_ptr(), out_l.data_ptr(), n_sfs.data_ptr(),
-        overflow.data_ptr(), incomplete.data_ptr(), iters.data_ptr(),
+        index.limb_bits or 0, out_qs.data_ptr(), out_l.data_ptr(),
+        n_sfs.data_ptr(), overflow.data_ptr(), incomplete.data_ptr(),
+        iters.data_ptr(),
         work.data_ptr() if work is not None else None, stream_handle(dev))
     check_launch(rc, "pingpong_fm")
     launches += 1
@@ -134,7 +140,8 @@ def batch_search_plain(index: DeviceFMDIndex, seqs: torch.Tensor,
                        work: Optional[torch.Tensor] = None
                        ) -> PingPongResult:
     """Plain PyTorch version of kernel K2: all lanes advance in lockstep,
-    one step per iteration, overflow checked every 48 steps."""
+    one step per iteration, overflow checked every 48 steps. Coordinates
+    are int64 on a wide table."""
     dev = seqs.device
     Q, Lp1 = seqs.shape
     P = seqs.to(torch.int32)
@@ -148,7 +155,7 @@ def batch_search_plain(index: DeviceFMDIndex, seqs: torch.Tensor,
     end = torch.zeros(Q, **i32)
     active = lens >= 1
     pend = torch.zeros(Q, dtype=torch.bool, device=dev)
-    p_rank = torch.zeros(Q, **i32)
+    p_rank = torch.zeros(Q, dtype=index.C.dtype, device=dev)
     count = torch.zeros(Q, **i32)
     out_qs = torch.zeros((Q, cap), **i32)
     out_l = torch.zeros((Q, cap), **i32)

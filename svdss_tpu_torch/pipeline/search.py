@@ -6,14 +6,16 @@ around the batched device kernel:
   * stream the (smoothed) BAM, keeping primary alignments with
     l_qseq >= 100 and (by default) XF == 0 — the same eligibility rules as
     load_batch_bam/process_batch (ping_pong.cpp:66-79, 196-203);
-  * encode reads to nt6 and search them on the device with one of two
-    engines: the FM rank walk (ops/pingpong.py, kernel K2 on the card) in
-    length-bucketed lane batches, or the anchor-verify engine
-    (ops/anchor_device.py) — one-shot batches (kernel K3) or the
-    persistent-lane pool (ops/anchor_pool.py, kernel K4) — chosen as the
-    JAX package chooses; any lane that overflows its emission buffer or
-    needs the exact path is redone on the host, so output is exact either
-    way;
+  * encode reads to nt6 and search them on the device with one of three
+    engines: the FM rank walk (ops/pingpong.py, kernel K2 on the card,
+    wide mode past 2^31 symbols) in length-bucketed lane batches, the
+    narrow anchor-verify engine (ops/anchor_device.py) — one-shot batches
+    (kernel K3) or the persistent-lane pool (ops/anchor_pool.py, kernel
+    K4) — or the wide anchor engine over forward-strand tables
+    (ops/anchor_wide_device.py, kernel K5: parked-phase waves when the
+    tables carry a heavy store, else one-shot batches), chosen as the JAX
+    package chooses; any lane that overflows its emission buffer or needs
+    the exact path is redone on the host, so output is exact either way;
   * optionally merge overlapping SFSs per read (ops/assemble.py, on by
     default like ``--noassemble``'s inverse) and write the 4-column
     specifics.txt.
@@ -39,7 +41,9 @@ from ..io.sfs_file import write_sfs_file
 from ..models import SFS
 from ..ops.anchor_device import batch_search_anchor, build_device_anchor
 from ..ops.anchor_pool import AnchorPool
-from ..ops.anchor_wide import AnchorIndexWide
+from ..ops.anchor_wide import AnchorIndexWide, make_heavy_resolver
+from ..ops.anchor_wide_device import (WideWaveRun, batch_search_anchor_wide,
+                                      build_device_anchor_wide)
 from ..ops.assemble import assemble
 from ..ops.fmd import DeviceFMDIndex
 from ..ops.pingpong import batch_search, pack_reads
@@ -250,15 +254,14 @@ def wide_engine_cost(anchor):
 class _DeviceSearcher:
     """Length-bucketed batching onto the device search kernels.
 
-    Two engines share the batching and host-redo shell: the FM rank walk
-    (ops/pingpong.py, K2) and the narrow anchor-verify engine
-    (ops/anchor_device.py, K3; its pool, K4, is driven by `run_search`).
-    The engine is chosen as the JAX package chooses it: anchor when anchor
-    tables are given and the index holds 2^26 symbols or more (or
-    ``--engine anchor``), unless its tables report a phase-heavy rate above
-    5%; wide tables go through the JAX package's cost model, and where it
-    picks the wide anchor engine, which is not ported yet, the FM engine
-    runs instead (``--engine anchor`` raises). Any lane that overflows or
+    Three engines share the batching and host-redo shell: the FM rank walk
+    (ops/pingpong.py, K2), the narrow anchor-verify engine
+    (ops/anchor_device.py, K3; its pool, K4, is driven by `run_search`)
+    and the wide anchor engine (ops/anchor_wide_device.py, K5). The engine
+    is chosen as the JAX package chooses it: anchor when anchor tables are
+    given and the index holds 2^26 symbols or more (or ``--engine
+    anchor``), unless narrow tables report a phase-heavy rate above 5% or
+    the cost model prefers FM over wide tables. Any lane that overflows or
     needs the exact path is redone on the host."""
 
     def __init__(self, index: FMDIndex, config: Config, device=None,
@@ -271,6 +274,8 @@ class _DeviceSearcher:
         self.config = config
         self.anchor = None
         self.dev = None
+        self.wide = False
+        self.heavy_resolver = None
         # the JAX package's crossover: the FM walk while its table is
         # small, the anchor engine from 2^26 symbols
         use_anchor = anchor is not None and (
@@ -298,16 +303,21 @@ class _DeviceSearcher:
                     "device engine (--engine anchor to override)",
                     100 * hr)
                 use_anchor = False
-        if use_anchor and wide_tables:
-            if config.engine == "anchor":
-                raise NotImplementedError(
-                    "the wide anchor engine is not ported yet (use --engine "
-                    "fm or auto)")
-            logger.warning("search: the cost model picks the wide anchor "
-                           "engine, which is not ported yet; using the FM "
-                           "device engine")
-            use_anchor = False
-        if use_anchor:
+        # parked-phase waves answer heavy phases from the tables' host-side
+        # heavy store (None on tables without one: one-shot batches)
+        self.wide = use_anchor and wide_tables
+        self.heavy_resolver = make_heavy_resolver(anchor) if self.wide \
+            else None
+        if self.wide:
+            self.anchor, self.anchor_params = build_device_anchor_wide(
+                anchor, self.device)
+            logger.info("search: wide anchor engine on %s (k=%d, tables "
+                        "%.2f GiB, %s; host peak RSS %.2f GiB)", self.device,
+                        self.anchor_params.k, self.anchor.nbytes / 2 ** 30,
+                        "parked-phase waves" if self.heavy_resolver
+                        else "one-shot", resource.getrusage(
+                            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20)
+        elif use_anchor:
             self.anchor, self.anchor_params = build_device_anchor(
                 anchor, self.device)
             logger.info("search: anchor engine on %s (k=%d, tables "
@@ -359,7 +369,24 @@ class _DeviceSearcher:
         # emission cap scales with the bucket length: SFS-dense 30 kb
         # reads average ~470 SFS
         cap = max(self.cap, L // 16)
-        if self.anchor is not None:
+        if self.wide and self.heavy_resolver is not None:
+            # parked-phase waves: construction launches wave 1, collect()
+            # runs the rest (the round cap is the narrow engine's alone)
+            resolver = self.heavy_resolver
+
+            def resolve_phases(lanes, ancs, dirbs, _encs=padded):
+                return np.array([resolver(_encs[ln], int(a),
+                                          "left" if d == 1 else "right")
+                                 for ln, a, d in zip(lanes, ancs, dirbs)],
+                                dtype=np.int32)
+            res = WideWaveRun(self.anchor, self.anchor_params, seqs, lens,
+                              resolve_phases, cap=cap,
+                              overlap=self.config.overlap)
+        elif self.wide:
+            res = batch_search_anchor_wide(self.anchor, self.anchor_params,
+                                           seqs, lens, cap=cap,
+                                           overlap=self.config.overlap)
+        elif self.anchor is not None:
             res = batch_search_anchor(self.anchor, self.anchor_params, seqs,
                                       lens, cap=cap,
                                       max_rounds=self.round_cap_for(L),
@@ -391,6 +418,8 @@ class _DeviceSearcher:
         encoded, res = handle
         if res is None:
             return [], None
+        if isinstance(res, WideWaveRun):
+            res = res.finish()
         n_sfs = res.n_sfs.cpu().numpy()
         qs = res.qs.cpu().numpy()
         ln = res.length.cpu().numpy()
@@ -486,8 +515,9 @@ def run_search(config: Config, index: FMDIndex,
             if len(batch) >= config.batch_size:
                 flush_host()
         flush_host()
-    elif searcher.anchor is not None and config.pool:
-        # persistent-lane pool: ONE pool serves every read-length bucket,
+    elif searcher.anchor is not None and not searcher.wide and config.pool:
+        # persistent-lane pool (narrow tables; the wide engine runs one-shot
+        # batches or waves below): ONE pool serves every read-length bucket,
         # recreated at a wider shape when a longer bucket appears (after
         # draining the narrower one, as the JAX package's driver does)
         pool: Optional[AnchorPool] = None

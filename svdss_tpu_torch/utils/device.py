@@ -48,8 +48,11 @@ SIGNATURES = {
         "svdss_anchor_pool": _ANCHOR_TABLES + [_P] * 3 + [_I] * 5
                              + [_P] * 7,
     },
+    "anchor_wide": {
+        "svdss_anchor_wide": [_P] * 4 + [_I] * 7 + [_P] * 6,
+    },
     "pingpong": {
-        "svdss_pingpong_fm": [_P] * 4 + [_I] * 5 + [_P] * 8,
+        "svdss_pingpong_fm": [_P] * 4 + [_I] * 6 + [_P] * 8,
     },
     "wavefront": {
         "svdss_wavefront_dp": [_P] * 4 + [_I] * 9 + [_P] * 4,

@@ -105,8 +105,28 @@ def test_extend_rank_step_matches(index, pair, wide_sz):
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
-def test_from_host_refuses_wide_indexes(index):
+def test_from_host_refuses_wide_indexes(index, monkeypatch):
+    """Wide mode is taken, not refused: at n >= 2^31 (an index that reads
+    as that large, its rows built from the real one) and with force_wide;
+    below 2^31 the table stays narrow."""
+    built = []
+
+    def rows(idx, limb_bits=None):
+        built.append(limb_bits)
+        return real_rows(index, limb_bits)
+    real_rows = tfmd.fused_from_host
+    monkeypatch.setattr(tfmd, "fused_from_host", rows)
+
     class Big:
         n = 2**31
-    with pytest.raises(NotImplementedError):
-        tfmd.DeviceFMDIndex.from_host(Big(), device="cpu")
+        C = index.C
+    big = tfmd.DeviceFMDIndex.from_host(Big(), device="cpu")
+    forced = tfmd.DeviceFMDIndex.from_host(index, device="cpu",
+                                           force_wide=True)
+    narrow = tfmd.DeviceFMDIndex.from_host(index, device="cpu")
+    assert built == [31, 31, None]
+    assert big.wide and forced.wide and not narrow.wide
+    assert big.limb_bits == forced.limb_bits == tfmd.LIMB_BITS == 31
+    assert big.C.dtype == torch.int64 and narrow.C.dtype == torch.int32
+    assert torch.equal(big.fused, forced.fused)
+    assert torch.equal(forced.C, narrow.C.to(torch.int64))

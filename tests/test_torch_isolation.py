@@ -17,11 +17,17 @@ from svdss_tpu_torch.ops.align_dp import batch_align
 from svdss_tpu_torch.ops.anchor import build_anchor_index
 from svdss_tpu_torch.ops.anchor_device import (batch_search_anchor,
                                                build_device_anchor)
+from svdss_tpu_torch.ops.anchor_wide import (build_anchor_index_wide,
+                                             make_heavy_resolver)
+from svdss_tpu_torch.ops.anchor_wide_device import (
+    batch_search_anchor_wide, batch_search_anchor_wide_waves,
+    build_device_anchor_wide)
 from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
 from svdss_tpu_torch.ops.pingpong import batch_search, pack_reads
 from svdss_tpu_torch.pipeline.call import run_call
 from svdss_tpu_torch.pipeline.search import run_search
 from svdss_tpu_torch.utils.device import resolve_device
+from svdss_tpu_torch.utils.seq import encode_nt6
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,6 +107,27 @@ def test_kernel_entry_points_default_to_cuda(no_cuda, tiny):
     assert batch_align(pair, device="cpu")[0][0] < 0
     adev, params = build_device_anchor(aidx, "cpu")
     assert int(batch_search_anchor(adev, params, seqs, lens).n_sfs[0]) >= 0
+
+
+def test_wide_entry_points_default_to_cuda(no_cuda, tiny):
+    """The wide path's entry points: the wide FM table and the wide anchor
+    engine's tables raise without a card; with device="cpu" the plain
+    versions run."""
+    chroms, index = tiny
+    with pytest.raises(RuntimeError):
+        DeviceFMDIndex.from_host(index, force_wide=True)
+    widx = build_anchor_index_wide(encode_nt6(chroms["g"]), k=8, cmax=16)
+    with pytest.raises(RuntimeError):
+        build_device_anchor_wide(widx)
+    dev = DeviceFMDIndex.from_host(index, "cpu", force_wide=True)
+    seqs, lens = pack_reads([np.ones(4, dtype=np.uint8)], device="cpu")
+    assert dev.wide and int(batch_search(dev, seqs, lens).n_sfs[0]) >= 0
+    wdev, params = build_device_anchor_wide(widx, "cpu")
+    assert int(batch_search_anchor_wide(wdev, params, seqs,
+                                        lens).n_sfs[0]) >= 0
+    res = batch_search_anchor_wide_waves(wdev, params, seqs, lens,
+                                         make_heavy_resolver(widx))
+    assert int(res.n_sfs[0]) >= 0
 
 
 def test_stage_entry_points_default_to_cuda(no_cuda, tiny, tmp_path):

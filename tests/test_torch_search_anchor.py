@@ -138,7 +138,9 @@ def port_engine(index, anchor, engine):
                                    anchor)
     except NotImplementedError:
         return "error"
-    return "fm" if s.anchor is None else "anchor"
+    if s.anchor is None:
+        return "fm"
+    return "wide" if s.wide else "anchor"
 
 
 @pytest.fixture
@@ -187,31 +189,36 @@ def wide_tables(sample):
 @pytest.mark.parametrize("heavy,expected", [(0.0, "wide"), (0.2, "fm")])
 def test_engine_gate_wide_matches_jax(sample, no_fm_tables, wide_tables,
                                       heavy, expected, caplog):
-    """Wide tables go through the cost model either way; where it picks
-    the wide anchor engine, which is not ported yet, the port says so and
-    takes FM, as it did before it had an anchor engine."""
+    """Wide tables go through the cost model either way, and the port takes
+    the engine the JAX package takes: the wide anchor engine where the
+    model prefers it, else FM with the model's numbers in the log."""
     wide, jwide = (dataclasses.replace(t, heavy_rate=heavy)
                    for t in wide_tables)
     assert search.wide_engine_cost(wide) == j_search.wide_engine_cost(jwide)
     big = 1 << 26
-    assert jax_engine(BigN(sample["jindex"], big), jwide, "auto") == expected
     caplog.set_level("INFO", logger="svdss_tpu")
-    assert port_engine(BigN(sample["index"], big), wide, "auto") == "fm"
+    assert port_engine(BigN(sample["index"], big), wide, "auto") \
+        == jax_engine(BigN(sample["jindex"], big), jwide, "auto") == expected
     log = " ".join(r.getMessage() for r in caplog.records)
-    assert ("wide anchor engine, which is not ported yet" in log) \
-        == (expected == "wide")
+    assert ("wide anchor engine on cpu" in log) == (expected == "wide")
+    assert ("engine cost model picks FM" in log) == (expected == "fm")
 
 
 def test_engine_gate_wide_anchor_raises(sample, no_fm_tables, wide_tables):
-    """`--engine anchor` on wide tables asks for the unported engine."""
-    assert port_engine(BigN(sample["index"], 1 << 26), wide_tables[0],
-                       "anchor") == "error"
+    """`--engine anchor` on wide tables runs the wide anchor engine, as in
+    the JAX package, whatever the size and the cost model say."""
+    costly = [dataclasses.replace(t, heavy_rate=0.2) for t in wide_tables]
+    for n in (None, 1 << 26):
+        index = BigN(sample["index"], n) if n else sample["index"]
+        jindex = BigN(sample["jindex"], n) if n else sample["jindex"]
+        assert port_engine(index, costly[0], "anchor") \
+            == jax_engine(jindex, costly[1], "anchor") == "wide"
 
 
-def test_cli_run_wide_genome(tmp_path, monkeypatch):
+def test_cli_run_wide_genome(tmp_path, monkeypatch, caplog):
     """A genome that takes wide anchor tables (here by the JAX package's
-    switch): `run` builds none and searches with FM, with the host
-    engines' output; `--engine anchor` stops before any stage."""
+    switch): `run` builds them, and `run --engine anchor` searches with the
+    wide anchor engine; both give the host engines' output."""
     rng = np.random.default_rng(5)
     chroms = random_genome(rng, {"chrW": 30000})
     h1 = make_haplotype(rng, "chrW", chroms["chrW"], n_ins=1, n_del=1,
@@ -223,19 +230,22 @@ def test_cli_run_wide_genome(tmp_path, monkeypatch):
     monkeypatch.setenv("SVDSS_TPU_WIDE_ANCHOR", "1")
     common = ["--reference", ref, "--bam", bam, "--device", "cpu",
               "--lanes", "16", "--threads", "2"]
-    with pytest.raises(SystemExit, match="wide anchor engine"):
-        cli.main(["run", "--workdir", str(tmp_path / "anchor"), "--engine",
-                  "anchor", *common])
-    assert not os.path.exists(tmp_path / "anchor" / "index.fmd.npz")
-    auto_wd, host_wd = tmp_path / "auto", tmp_path / "host"
+    auto_wd, anchor_wd, host_wd = (tmp_path / d for d in
+                                   ("auto", "anchor", "host"))
     assert cli.main(["run", "--workdir", str(auto_wd), *common]) == 0
-    assert not os.path.exists(auto_wd / "index.fmd.npz.anchor.npz")
+    with np.load(auto_wd / "index.fmd.npz.anchor.npz") as z:
+        assert "cnts" in z.files            # the wide tables' field
+    caplog.set_level("INFO", logger="svdss_tpu")
+    assert cli.main(["run", "--workdir", str(anchor_wd), "--engine",
+                     "anchor", *common]) == 0
+    assert "wide anchor engine on cpu" in caplog.text
     assert cli.main(["run", "--workdir", str(host_wd), "--no-device",
                      *common]) == 0
     for name in ("specifics.txt", "variations.vcf"):
         want = (host_wd / name).read_bytes()
         assert len(want) > 0
         assert (auto_wd / name).read_bytes() == want
+        assert (anchor_wd / name).read_bytes() == want
 
 
 def test_cli_run_anchor_matches_jax_host_run(tmp_path):
