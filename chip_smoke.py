@@ -25,6 +25,11 @@ checkout at first use. Phases, each printing one JSON line:
            1 Mbp genome and a repeat-rich genome whose heavy anchors park
            lanes (64 lanes against the host oracle); the wavefront DP
            kernel at the call stage's buckets (CIGARs against the host DP);
+           the jump-table kernel at k = 1, 6 and 8 over the FM check's
+           genome, and the FM kernel's jump mode with that genome's 6-mer
+           table on its read mix (with the overflow and step-budget
+           cases), whose complete lanes equal the search without jumps in
+           no more steps;
   run      the main path, ``cli run`` with the default engine choice, on a
            seed-pinned 40 Mbp diploid sample (the sample of
            tools/chr_scale.py, simulated with the port's own simulator):
@@ -34,13 +39,18 @@ checkout at first use. Phases, each printing one JSON line:
            (``--engine anchor --no-pool``), the FM engine (``--engine
            fm``) and the host engines (``--no-device``), and with the
            JAX package's wide switch (``SVDSS_TPU_WIDE_ANCHOR=1``, its own
-           wide tables, default engine: the wide anchor engine in waves):
-           the five specifics.txt and VCF files must be identical, and
+           wide tables, default engine: the wide anchor engine in waves),
+           and the FM engine with ``Config.kmer_jump = 12`` (the jump table
+           built by 11 launches of its kernel, then the FM kernel's jump
+           mode): the six specifics.txt and VCF files must be identical, and
            recall and precision are scored against the planted SVs. Each
            run's kernel launches are counted from 0;
   timing   each kernel and its plain version timed with CUDA events on the
            inputs the main path gave it (K2's wide mode on the force-wide
-           table of the run's index with the FM run's reads), and the least
+           table of the run's index with the FM run's reads; the 12-mer
+           jump table of the run's index, held whole against its plain
+           version; K2's jump mode on the FM run's reads with that table,
+           with its rank steps beside those without jumps), and the least
            time the card could take for the same work.
 
 Then the card's nvidia-smi line, the kernel table as one JSON line, and
@@ -87,6 +97,15 @@ OPS_PER_DP_CELL = 40
 # two symbol fetches, the compare and the loop test
 OPS_PER_ANCHOR_ROUND = 60
 OPS_PER_COMPARED_SYMBOL = 4
+# a jump-table parent: at each of its two endpoints, 32 packed words x 5
+# symbols x (xor, add, and-not, mask, popcount, accumulate); then 4
+# children of ~8 each. A jump-mode lookup: the key, ~4 a symbol, and the
+# row's tests
+OPS_PER_JUMP_PARENT = 2 * 32 * 5 * 6 + 4 * 8
+OPS_PER_KEY_SYMBOL = 4
+# the sixth run's k, and the k of the kernels phase's jump checks
+RUN_JUMP_K = 12
+CHECK_JUMP_K = 6
 
 # the run phase's sample: tools/chr_scale.py at its defaults, no cut
 GENOME_MBP = 40                 # one chromosome, 80M two-strand symbols
@@ -242,7 +261,9 @@ def check_pingpong(rng) -> dict:
     g = "".join("ACGT"[i] for i in rng.integers(0, 4, 1_000_000))
     index = build_index({"g": g})
     dev = DeviceFMDIndex.from_host(index, "cuda")
-    reads = read_mix(g, rng) + long_reads(g, rng, 512)
+    reads = read_mix(g, rng)
+    n_mix = len(reads)
+    reads += long_reads(g, rng, 512)
     enc = [encode_nt6(r) for r in reads]
     L = _bucket_len(max(len(e) for e in enc))
     fields = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
@@ -283,10 +304,86 @@ def check_pingpong(rng) -> dict:
         got = list(zip(qs[i, :k].tolist(), ln[i, :k].tolist()))
         oracle_bad += got != ping_pong_search(index, enc[i])
     mismatches = sum(c["max_abs_err"] > 0 for c in cases) + oracle_bad
-    return {"name": "pingpong_fm", "cases": cases,
-            "oracle_lanes": len(order), "oracle_mismatches": oracle_bad,
-            "mismatches": mismatches,
-            "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    return [{"name": "pingpong_fm", "cases": cases,
+             "oracle_lanes": len(order), "oracle_mismatches": oracle_bad,
+             "mismatches": mismatches,
+             "max_abs_err": max(c["max_abs_err"] for c in cases)},
+            *check_jump(dev, enc, n_mix, L, cap)]
+
+
+def check_jump(dev, enc, n_mix: int, L: int, cap: int) -> list:
+    """K6 against its plain version at k = 1, 6 and 8 on the FM check's
+    genome (the whole table); K2's jump mode with the 6-mer table against
+    its plain jump version in all six fields, on the FM check's read mix
+    (its first `n_mix` reads, padded as the whole batch) and on the
+    overflow and step-budget cases of its first 64 reads; and on the read
+    mix's lanes complete with and without jumps, K2 with jumps against K2
+    without: the same SFS lists, and iters not larger. (The timing phase
+    holds the jump mode against its plain version on the main path's
+    reads.)"""
+    from svdss_tpu_torch.ops import fmd, pingpong
+    tables, cases = {}, []
+    for k in (1, CHECK_JUMP_K, 8):
+        before = fmd.launches
+        got = fmd.build_jump_table(dev, k)
+        torch.cuda.synchronize()
+        if fmd.launches != before + k - 1:
+            raise RuntimeError(f"build_jump_table({k}) launched K6 "
+                               f"{fmd.launches - before} times, not {k - 1}")
+        want = fmd.build_jump_table_plain(dev, k)
+        tables[k] = got
+        cases.append({"case": f"k={k}", "rows": 4 ** k,
+                      "present": int((got[:, 2] > 0).sum()),
+                      "max_abs_err": max_abs_diff([got], [want])})
+    k6 = {"name": "jump_level", "cases": cases,
+          "mismatches": sum(c["max_abs_err"] > 0 for c in cases),
+          "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+    table = tables[CHECK_JUMP_K]
+    seqs, lens = pingpong.pack_reads(enc, pad_to=L, device="cuda")
+    nojump = pingpong.batch_search(dev, seqs[:n_mix], lens[:n_mix], cap=cap)
+    jcases = []
+    for name, n, kw in (("read mix", n_mix, dict(cap=cap)),
+                        ("cap=2 overflow", 64, dict(cap=2)),
+                        ("max_iters=200 incomplete", 64,
+                         dict(cap=cap, max_iters=200))):
+        before = pingpong.launches
+        got = pingpong.batch_search(dev, seqs[:n], lens[:n], jump_table=table,
+                                    jump_k=CHECK_JUMP_K, **kw)
+        torch.cuda.synchronize()
+        if pingpong.launches != before + 1:
+            raise RuntimeError("batch_search did not launch K2 (jump mode)")
+        max_iters = kw.get("max_iters") or 8 * L + 64
+        want = pingpong.batch_search_plain(
+            dev, seqs[:n], lens[:n], kw["cap"],
+            -(-max_iters // pingpong.K_INNER), jump_table=table,
+            jump_k=CHECK_JUMP_K)
+        case = {"case": f"k={CHECK_JUMP_K}: {name}", "lanes": n, "L": L,
+                "cap": kw["cap"],
+                "max_abs_err": max_abs_diff(
+                    [getattr(got, f) for f in PP_FIELDS],
+                    [getattr(want, f) for f in PP_FIELDS]),
+                "overflow": int(got.overflow.sum()),
+                "incomplete": int(got.incomplete.sum()),
+                "iters": int(got.iters)}
+        if n == n_mix:
+            # complete lanes, with and without jumps: the same SFS lists
+            done = ~(got.overflow | got.incomplete | nojump.overflow
+                     | nojump.incomplete)
+            case["complete_lanes"] = int(done.sum())
+            case["iters_without_jumps"] = int(nojump.iters)
+            case["vs_nojump_max_abs_err"] = max_abs_diff(
+                [got.qs[done], got.length[done], got.n_sfs[done]],
+                [nojump.qs[done], nojump.length[done], nojump.n_sfs[done]])
+            if int(got.iters) > int(nojump.iters):
+                case["vs_nojump_max_abs_err"] = max(
+                    case["vs_nojump_max_abs_err"], 1)
+        jcases.append(case)
+    errs = [max(c["max_abs_err"], c.get("vs_nojump_max_abs_err", 0))
+            for c in jcases]
+    return [k6, {"name": "pingpong_fm_jump", "cases": jcases,
+                 "mismatches": sum(e > 0 for e in errs),
+                 "max_abs_err": max(errs)}]
 
 
 def anchor_mix(enc: np.ndarray, rng, n: int = 48, L: int = 300) -> list:
@@ -776,7 +873,7 @@ def check_wavefront(rng) -> dict:
 def phase_kernels(seed: int) -> dict:
     t0 = time.time()
     rng = np.random.default_rng(seed)
-    checks = [check_pingpong(rng), check_pingpong_wide(rng),
+    checks = [*check_pingpong(rng), check_pingpong_wide(rng),
               *check_anchor(rng), check_anchor_wide(rng),
               check_wavefront(rng)]
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
@@ -786,9 +883,10 @@ def phase_kernels(seed: int) -> dict:
         raise RuntimeError(f"kernels disagree with their plain versions: "
                            f"{bad}")
     errs = {c["name"]: c["max_abs_err"] for c in checks}
-    # K2's two instantiations are one kernel's
+    # K2's two instantiations and its jump mode are one kernel's
     errs["pingpong_fm"] = max(errs["pingpong_fm"],
-                              errs.pop("pingpong_fm_wide"))
+                              errs.pop("pingpong_fm_wide"),
+                              errs.pop("pingpong_fm_jump"))
     return errs
 
 
@@ -859,6 +957,7 @@ STAGES = (("index", "svdss_tpu_torch.index.fmd", "build_index"),
 # each kernel's launch counter (a module-level `launches`)
 KERNEL_MODULES = {"wavefront_dp": "svdss_tpu_torch.ops.align_dp",
                   "pingpong_fm": "svdss_tpu_torch.ops.pingpong",
+                  "jump_level": "svdss_tpu_torch.ops.fmd",
                   "anchor_batch": "svdss_tpu_torch.ops.anchor_device",
                   "anchor_pool": "svdss_tpu_torch.ops.anchor_pool",
                   "anchor_wide": "svdss_tpu_torch.ops.anchor_wide_device"}
@@ -942,15 +1041,25 @@ class Spy:
         setattr(self.module, self.name, self.fn)
 
 
-def run_cli(argv: list, required: tuple) -> dict:
+def run_cli(argv: list, required: tuple, kmer_jump: int = 0) -> dict:
     """One `cli run`, with every kernel's launch count set to 0 just
-    before it and read just after, its stages timed and its log kept."""
+    before it and read just after, its stages timed and its log kept.
+    `kmer_jump` sets Config.kmer_jump, which has no flag (as in the JAX
+    package's command line): run_search and run_call get the config `run`
+    makes with it set."""
     from svdss_tpu_torch import cli
     from svdss_tpu_torch.utils.log import logger
     mods = {k: importlib.import_module(m) for k, m in KERNEL_MODULES.items()}
     tap = LogTap()
     logger.addHandler(tap)
     timer = StageTimer()
+    make_cfg = cli._cfg
+
+    def cfg_with_jump(args):
+        cfg = make_cfg(args)
+        cfg.kmer_jump = kmer_jump
+        return cfg
+    cli._cfg = cfg_with_jump
     try:
         for mod in mods.values():
             mod.launches = 0
@@ -960,6 +1069,7 @@ def run_cli(argv: list, required: tuple) -> dict:
         run_s = time.perf_counter() - t0
         launches = {k: mod.launches for k, mod in mods.items()}
     finally:
+        cli._cfg = make_cfg
         timer.restore()
         logger.removeHandler(tap)
     if rc != 0:
@@ -1000,13 +1110,14 @@ def phase_run(wd: str, args) -> dict:
     sim = simulate(wd, args.seed)
     ref, bam = os.path.join(wd, "ref.fa"), os.path.join(wd, "reads.bam")
     dirs = {k: os.path.join(wd, k) for k in ("auto", "oneshot", "fm",
-                                              "host", "wide")}
+                                              "host", "wide", "jump")}
     common = ["--reference", ref, "--bam", bam,
               "--threads", str(os.cpu_count() or 4)]
 
     spies = {"pingpong_fm": Spy(search_mod, "batch_search",
                                 lambda idx, seqs, lens, **kw: (
-                                    (tuple(seqs.shape), kw.get("cap")),
+                                    (tuple(seqs.shape), kw.get("cap"),
+                                     kw.get("jump_k", 0)),
                                     seqs.numel())),
              "anchor_batch": Spy(search_mod, "batch_search_anchor",
                                  lambda idx, p, seqs, lens, **kw: (
@@ -1078,11 +1189,40 @@ def phase_run(wd: str, args) -> dict:
         finally:
             del os.environ["SVDSS_TPU_WIDE_ANCHOR"]
         expect(runs["wide"], "wide run", ("anchor_wide", "wavefront_dp"),
-               ("pingpong_fm", "anchor_batch", "anchor_pool"),
+               ("pingpong_fm", "anchor_batch", "anchor_pool", "jump_level"),
                (r"index: WIDE anchor tables",
                 r"search: wide anchor engine on cuda .*parked-phase waves"),
                (r"FM engine on", r"anchor pool on",
                 r"cost model picks FM"))
+        # the FM engine with the k-mer jump-start (Config.kmer_jump, no
+        # flag), on hard links of the index and smoothed BAM
+        os.makedirs(dirs["jump"])
+        for f in ("index.fmd.npz", "smoothed.bam"):
+            os.link(os.path.join(dirs["auto"], f),
+                    os.path.join(dirs["jump"], f))
+        runs["jump"] = run_cli(
+            [*common, "--workdir", dirs["jump"], "--engine", "fm"],
+            ("search", "call"), kmer_jump=RUN_JUMP_K)
+        expect(runs["jump"], "kmer_jump run",
+               ("jump_level", "pingpong_fm", "wavefront_dp"),
+               ("anchor_batch", "anchor_pool", "anchor_wide"),
+               (r"search: FM engine on cuda",
+                rf"search: built {RUN_JUMP_K}-mer jump table in"))
+        runs["jump"]["jump_table_log_s"] = float(runs["jump"]["tap"].grab(
+            r"built \d+-mer jump table in ([\d.]+)s").group(1))
+        counts = runs["jump"]["launches"]
+        if (counts["jump_level"] != RUN_JUMP_K - 1
+                or counts["pingpong_fm"] != runs["fm"]["launches"][
+                    "pingpong_fm"]
+                or not any(key[2] == RUN_JUMP_K
+                           for key in spies["pingpong_fm"].shapes)):
+            raise RuntimeError(f"kmer_jump run: {counts['jump_level']} K6 "
+                               f"launches (want {RUN_JUMP_K - 1}), "
+                               f"{counts['pingpong_fm']} K2 launches, "
+                               f"K2 batches {spies['pingpong_fm'].shapes}")
+        for k in ("auto", "oneshot", "fm", "wide"):
+            if runs[k]["launches"]["jump_level"]:
+                raise RuntimeError(f"{k} run launched the jump-table kernel")
     finally:
         for spy in spies.values():
             spy.restore()
@@ -1092,7 +1232,7 @@ def phase_run(wd: str, args) -> dict:
         want = open(os.path.join(dirs["host"], f), "rb").read()
         same[f] = len(want) > 0 and all(
             open(os.path.join(dirs[k], f), "rb").read() == want
-            for k in ("auto", "oneshot", "fm", "wide"))
+            for k in ("auto", "oneshot", "fm", "wide", "jump"))
     quality = score_calls(os.path.join(dirs["auto"], "variations.vcf"),
                           sim["truth"])
     info = {"phase": "run", "genome_mbp": GENOME_MBP, "coverage": COVERAGE,
@@ -1101,6 +1241,8 @@ def phase_run(wd: str, args) -> dict:
             "runs": {k: {f: v for f, v in r.items() if f != "tap"}
                      for k, r in runs.items()},
             "batches": {k: {f"{s[0]} cap {s[1]}" if len(s) == 2
+                            else f"{s[0]} cap {s[1]} jump_k {s[2]}"
+                            if k == "pingpong_fm"
                             else " ".join(map(str, s)): v
                             for s, v in spy.shapes.items()}
                         for k, spy in spies.items()},
@@ -1114,6 +1256,7 @@ def phase_run(wd: str, args) -> dict:
     launches["anchor_batch"] = runs["oneshot"]["launches"]["anchor_batch"]
     launches["pingpong_fm"] = runs["fm"]["launches"]["pingpong_fm"]
     launches["anchor_wide"] = runs["wide"]["launches"]["anchor_wide"]
+    launches["jump_level"] = runs["jump"]["launches"]["jump_level"]
     return {"launches": launches, "spies": spies,
             "index_path": os.path.join(dirs["auto"], "index.fmd.npz")}
 
@@ -1179,6 +1322,97 @@ def time_pingpong(spy: Spy, index=None) -> dict:
             "read_bytes": read_bytes, "bound_bytes": nbytes,
             "table_MiB": table / 2 ** 20, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "max_abs_err": err, **vs_narrow}
+
+
+def time_jump_level(index, k: int) -> dict:
+    """K6 building the k-mer table of the run's index (k - 1 launches,
+    timed together), held whole against its plain version. The bound:
+    the fused rows the levels read (each once, counted from this index's
+    intervals), C, and the table written; the operations of every
+    parent."""
+    from svdss_tpu_torch.ops import fmd
+    got = fmd.build_jump_table(index, k)
+    ms = cuda_ms(lambda: fmd.build_jump_table(index, k), 5)
+    holder = {}
+    plain_ms = once_ms(lambda: holder.setdefault(
+        "r", fmd.build_jump_table_plain(index, k)))
+    err = max_abs_diff([got], [holder["r"]])
+    # the rows each level reads: at lo = x0 and hi = x0 + sz of its parents
+    # (position 0 for an absent one)
+    nblk = index.fused.shape[0]
+    touched = torch.zeros(nblk, dtype=torch.bool, device=index.device)
+    rows, parents = fmd.level_one(index), 0
+    for _ in range(1, k):
+        live = rows[:, 2] > 0
+        lo = torch.where(live, rows[:, 0], 0)
+        touched[(lo >> 7).long()] = True
+        touched[((lo + torch.where(live, rows[:, 2], 0)) >> 7).long()] = True
+        parents += rows.shape[0]
+        rows = fmd.jump_level_plain(index, rows)
+    n_touched = int(touched.sum())
+    nbytes = 192 * n_touched + 4 * 8 + 16 * 4 ** k
+    bms, by = bound(nbytes, parents * OPS_PER_JUMP_PARENT)
+    return {"shape": f"k={k} over {nblk} fused rows ({4 ** k} table rows)",
+            "launches": k - 1, "parents": parents,
+            "present": int((got[:, 2] > 0).sum()),
+            "rows_touched": n_touched, "bound_bytes": nbytes,
+            "bound_ops": parents * OPS_PER_JUMP_PARENT,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err, "table": got}
+
+
+def time_pingpong_jump(spy: Spy, table, k: int) -> dict:
+    """K2's jump mode on the FM run's largest launch input with the k-mer
+    table of the run's index: its time, its plain version's, and its rank
+    steps beside those of the same reads without jumps."""
+    from svdss_tpu_torch.ops import pingpong
+    _, (index, seqs, lens), kw = spy.best
+    kw = dict(kw, jump_table=table, jump_k=k)
+    Q, Lp1 = seqs.shape
+    cap = kw["cap"]
+    got = pingpong.batch_search(index, seqs, lens, **kw)
+    lseqs, llens = live_lanes(seqs, lens)
+    work = torch.zeros(2, dtype=torch.int64, device=seqs.device)
+    live = pingpong.batch_search(index, lseqs, llens, work=work, **kw)
+    plain_work = torch.zeros(1, dtype=torch.int64, device=seqs.device)
+    nojump = pingpong.batch_search(index, lseqs, llens, work=plain_work,
+                                   cap=cap)
+    torch.cuda.synchronize()
+    steps, jump_rows = work.tolist()
+    ms = cuda_ms(lambda: pingpong.batch_search(index, seqs, lens, **kw), 5)
+    nojump_ms = cuda_ms(lambda: pingpong.batch_search(index, seqs, lens,
+                                                      cap=cap), 5)
+    max_outer = -(-(8 * (Lp1 - 1) + 64) // pingpong.K_INNER)
+    holder = {}
+    plain_ms = once_ms(lambda: holder.setdefault(
+        "r", pingpong.batch_search_plain(index, seqs, lens, cap, max_outer,
+                                         kw.get("overlap", -1),
+                                         jump_table=table, jump_k=k)))
+    err = max_abs_diff([getattr(got, f) for f in PP_FIELDS],
+                       [getattr(holder["r"], f) for f in PP_FIELDS])
+    done = ~(live.overflow | live.incomplete | nojump.overflow
+             | nojump.incomplete)
+    vs_nojump = max_abs_diff(
+        [live.qs[done], live.length[done], live.n_sfs[done]],
+        [nojump.qs[done], nojump.length[done], nojump.n_sfs[done]])
+    # bytes as for K2 without jumps, plus the table rows read (16 B each,
+    # never more than the table); operations as for K2 plus the keys
+    fused = index.fused.numel() * 4
+    read_bytes = int((llens.long() + 1).sum())
+    nbytes = (read_bytes + 4 * len(llens) + min(fused, steps * 192)
+              + min(table.numel() * 4, jump_rows * 16)
+              + 8 * int(live.n_sfs.sum()) + 6 * len(llens) + 4)
+    bms, by = bound(nbytes, steps * OPS_PER_RANK_STEP
+                    + jump_rows * (k * OPS_PER_KEY_SYMBOL + 8))
+    return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap} k={k}",
+            "rank_steps": steps,
+            "rank_steps_without_jumps": int(plain_work.item()),
+            "jump_rows": jump_rows, "iters": int(got.iters),
+            "iters_without_jumps": int(nojump.iters),
+            "ms_without_jumps": nojump_ms, "bound_bytes": nbytes,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": max(err, vs_nojump),
+            "vs_nojump_max_abs_err": vs_nojump}
 
 
 def time_wavefront(spy: Spy) -> dict:
@@ -1360,8 +1594,14 @@ def phase_timing(run: dict) -> dict:
     spies = run["spies"]
     wide = DeviceFMDIndex.from_host(FMDIndex.load(run["index_path"]),
                                     "cuda", force_wide=True)
+    narrow = spies["pingpong_fm"].best[1][0]
+    jump = time_jump_level(narrow, RUN_JUMP_K)
+    table = jump.pop("table")
     out = {"pingpong_fm": time_pingpong(spies["pingpong_fm"]),
            "pingpong_fm_wide": time_pingpong(spies["pingpong_fm"], wide),
+           "jump_level": jump,
+           "pingpong_fm_jump": time_pingpong_jump(spies["pingpong_fm"],
+                                                  table, RUN_JUMP_K),
            "anchor_batch": time_anchor_batch(spies["anchor_batch"]),
            "anchor_pool": time_anchor_pool(spies["anchor_pool"]),
            "anchor_wide": time_anchor_wide(spies["anchor_wide"]),
@@ -1387,6 +1627,8 @@ KERNELS = (
      "svdss_tpu/ops/anchor_wide_jax.py:1144"),
     ("wavefront_dp", "svdss_tpu_torch/csrc/wavefront.cu",
      "svdss_tpu/ops/align_pallas.py:181"),
+    ("jump_level", "svdss_tpu_torch/csrc/jump.cu",
+     "svdss_tpu/ops/fmd_jax.py:500"),
 )
 
 

@@ -33,6 +33,23 @@
 // lanes over as many SMs as possible; with ~2.3k lanes per batch that is
 // still only ~72 warps, so latency hiding is poor — more lanes in flight
 // per SM is the first thing to fix.
+//
+// Jump mode (narrow only, jump_k > 0): the k-mer jump-start of
+// svdss_tpu/ops/pingpong_jax.py:264-302 (key chunks :145-146, :323-327).
+// At a phase transition whose k-mer is present in the table built by kernel
+// K6 (csrc/jump.cu), a lane loads that k-mer's bi-interval as one 16-byte
+// row and skips k - 1 rank steps: going forward it takes x1 and ends at
+// begin + k - 1, restarting backward it takes x0 and begins at
+// begin_new - (k - 1). The JAX package decides a jump from the geometry of
+// its 256-symbol key chunk, whose base 128m is fixed at the start of each
+// 48-step block from the lane's cursor; this kernel keeps that base per
+// lane, recomputed at every block start, so the same transitions jump and
+// the outputs (iters included) are the JAX package's. The key of the window
+// ending at kpos is computed from the read itself (the JAX package uploads
+// a [Q, L+1] key array): -1 when the window starts before the read or holds
+// a symbol outside A..T. Past the padded read the JAX package's key chunks
+// hold 0, the key of poly-A, and a lane can jump there and leave the host
+// oracle; here such a window holds no key and the lane follows the oracle.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,6 +62,8 @@ constexpr int SPAN = 256;
 constexpr int ROW_WORDS = 48;
 constexpr int OCC_COLS = 16;
 constexpr int THREADS = 32;
+constexpr int CHUNK = 256;    // the JAX package's per-lane key chunk
+constexpr int STRIDE = 128;   // its chunk base granularity
 
 __device__ __forceinline__ int comp6(int c) {
   return (c >= 1 && c <= 4) ? 5 - c : c;
@@ -57,6 +76,21 @@ __device__ __forceinline__ uint32_t nib_mask_lt(int bound, int w) {
   if (k >= 8) return 0x88888888u;
   const uint32_t full = ((1u << (4 * k)) - 1u) & 0x88888888u;
   return full | (w < (bound & 31) ? (8u << (4 * k)) : 0u);
+}
+
+// The key of the k-mer of P ending at kpos (sum (sym - 1) * 4^i, the last
+// symbol at 4^0), or -1 when the window starts before the read, ends past
+// the padded read, or holds a symbol outside A..T.
+__device__ __forceinline__ int window_key(const uint8_t* P, int Lp1, int kpos,
+                                          int k) {
+  if (kpos - (k - 1) < 0 || kpos >= Lp1) return -1;
+  int key = 0;
+  for (int i = 0; i < k; ++i) {
+    const int s = P[kpos - i];
+    if (s < 1 || s > 4) return -1;
+    key |= (s - 1) << (2 * i);
+  }
+  return key;
 }
 
 // Checkpoint count of symbol c in a fused row: the int32 column, or in wide
@@ -77,12 +111,14 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
                    const Coord* __restrict__ Cg,
                    const uint8_t* __restrict__ seqs,
                    const int32_t* __restrict__ lens,
+                   const int4* __restrict__ jt,
                    int Q, int Lp1, int cap, int max_outer, int overlap,
-                   int limb_bits,
+                   int limb_bits, int jump_k, int n_windows,
                    int32_t* __restrict__ out_qs, int32_t* __restrict__ out_l,
                    int32_t* __restrict__ n_sfs, uint8_t* __restrict__ ovf_o,
                    uint8_t* __restrict__ inc_o, int32_t* __restrict__ iters,
-                   unsigned long long* __restrict__ work) {
+                   unsigned long long* __restrict__ work,
+                   unsigned long long* __restrict__ jump_work) {
   __shared__ Coord C[8];
   if (threadIdx.x < 8) C[threadIdx.x] = Cg[threadIdx.x];
   __syncthreads();
@@ -100,10 +136,17 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
   bool pend = false;
   Coord p_rank = 0;
   int count = 0, blocks = 0;
-  long long rank_steps = 0;
+  long long rank_steps = 0, jump_rows = 0;
   bool overflow = false;
+  const bool jumps = !WIDE && jump_k > 0;
+  int base = 0;   // the lane's key-chunk base in jump mode
 
   while (active && blocks < max_outer) {
+    if (jumps) {
+      // pingpong_jax.py:316-319, 328: the window around the cursor
+      const int cursor = min(max(dir == 0 ? begin : end + 1, 0), Lp1 - 1);
+      base = min(max((cursor - STRIDE / 2) >> 7, 0), n_windows - 1) * STRIDE;
+    }
     for (int k = 0; k < K_INNER && active; ++k) {
       const bool is_bwd = dir == 0;
       const bool bwd_can = is_bwd && sz != 0 && begin > 0;
@@ -193,12 +236,43 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
         end1 = begin1;
         pos = C[comp6(c_acc)];
         sz1 = C[c_acc + 1] - C[c_acc];
+        // jump when the whole post-jump drift of the block stays in the
+        // JAX package's chunk (safe_f, pingpong_jax.py:277)
+        const int kpos = begin1 + jump_k - 1;
+        const int key = jumps && kpos - base >= 0
+                                && kpos - base + K_INNER + 1 < CHUNK
+                            ? window_key(P, Lp1, kpos, jump_k) : -1;
+        if (key >= 0) {
+          ++jump_rows;
+          const int4 r = __ldg(jt + key);
+          if (r.z > 0) {
+            pos = r.y;
+            sz1 = r.z;
+            end1 = kpos;
+          }
+        }
       } else if (restart) {
         dir = 0;
-        begin1 = overlap == 0 ? begin1 - 1 : end1 + overlap;
+        const int begin_new = overlap == 0 ? begin1 - 1 : end1 + overlap;
+        begin1 = begin_new;
         const int cr = (begin1 >= 0 && begin1 < Lp1) ? (int)P[begin1] : 0;
         pos = C[cr];
         sz1 = C[cr + 1] - C[cr];
+        // safe_b (pingpong_jax.py:276): room for k - 1 and a block's steps
+        // below the jump, inside the chunk
+        const int koff = begin_new - base;
+        const int key = jumps && begin_new >= jump_k - 1
+                                && koff >= jump_k + K_INNER && koff < CHUNK
+                            ? window_key(P, Lp1, begin_new, jump_k) : -1;
+        if (key >= 0) {
+          ++jump_rows;
+          const int4 r = __ldg(jt + key);
+          if (r.z > 0) {
+            pos = r.x;
+            sz1 = r.z;
+            begin1 = begin_new - (jump_k - 1);
+          }
+        }
       }
       if (prefix_match || emit_done) active = false;
       begin = begin1;
@@ -222,47 +296,55 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
   inc_o[lane] = active;
   atomicMax(iters, blocks * K_INNER);
   if (work) atomicAdd(work, (unsigned long long)rank_steps);
+  if (jump_work) atomicAdd(jump_work, (unsigned long long)jump_rows);
 }
 
 template <typename Coord, bool WIDE>
 void launch(const void* fused, const void* C, const void* seqs,
-            const void* lens, int Q, int Lp1, int cap, int max_outer,
-            int overlap, int limb_bits, void* out_qs, void* out_l,
-            void* n_sfs, void* overflow, void* incomplete, void* iters,
-            void* work, cudaStream_t s) {
+            const void* lens, const void* jt, int Q, int Lp1, int cap,
+            int max_outer, int overlap, int limb_bits, int jump_k,
+            int n_windows, void* out_qs, void* out_l, void* n_sfs,
+            void* overflow, void* incomplete, void* iters, void* work,
+            void* jump_work, cudaStream_t s) {
   pingpong_fm_kernel<Coord, WIDE>
       <<<(Q + THREADS - 1) / THREADS, THREADS, 0, s>>>(
           static_cast<const int32_t*>(fused), static_cast<const Coord*>(C),
           static_cast<const uint8_t*>(seqs),
-          static_cast<const int32_t*>(lens), Q, Lp1, cap, max_outer,
-          overlap, limb_bits, static_cast<int32_t*>(out_qs),
-          static_cast<int32_t*>(out_l), static_cast<int32_t*>(n_sfs),
-          static_cast<uint8_t*>(overflow), static_cast<uint8_t*>(incomplete),
-          static_cast<int32_t*>(iters),
-          static_cast<unsigned long long*>(work));
+          static_cast<const int32_t*>(lens), static_cast<const int4*>(jt),
+          Q, Lp1, cap, max_outer, overlap, limb_bits, jump_k, n_windows,
+          static_cast<int32_t*>(out_qs), static_cast<int32_t*>(out_l),
+          static_cast<int32_t*>(n_sfs), static_cast<uint8_t*>(overflow),
+          static_cast<uint8_t*>(incomplete), static_cast<int32_t*>(iters),
+          static_cast<unsigned long long*>(work),
+          static_cast<unsigned long long*>(jump_work));
 }
 
 }  // namespace
 
-// limb_bits 0: narrow table, C int32[8]; else wide, C int64[8].
+// limb_bits 0: narrow table, C int32[8]; else wide, C int64[8]. jump_k > 0
+// (narrow only): jump mode with the int32[4^jump_k, 4] table jt and the
+// JAX package's key-chunk count n_windows. work and jump_work (nullable)
+// gain the rank steps and the jump-table rows read.
 extern "C" int svdss_pingpong_fm(const void* fused, const void* C,
-                                 const void* seqs, const void* lens, int Q,
-                                 int Lp1, int cap, int max_outer, int overlap,
-                                 int limb_bits, void* out_qs, void* out_l,
-                                 void* n_sfs, void* overflow,
+                                 const void* seqs, const void* lens,
+                                 const void* jt, int Q, int Lp1, int cap,
+                                 int max_outer, int overlap, int limb_bits,
+                                 int jump_k, int n_windows, void* out_qs,
+                                 void* out_l, void* n_sfs, void* overflow,
                                  void* incomplete, void* iters, void* work,
-                                 void* stream) {
+                                 void* jump_work, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(iters, 0, sizeof(int32_t), s);
   if (Q > 0) {
     if (limb_bits)
-      launch<long long, true>(fused, C, seqs, lens, Q, Lp1, cap, max_outer,
-                              overlap, limb_bits, out_qs, out_l, n_sfs,
-                              overflow, incomplete, iters, work, s);
+      launch<long long, true>(fused, C, seqs, lens, nullptr, Q, Lp1, cap,
+                              max_outer, overlap, limb_bits, 0, n_windows,
+                              out_qs, out_l, n_sfs, overflow, incomplete,
+                              iters, work, nullptr, s);
     else
-      launch<int, false>(fused, C, seqs, lens, Q, Lp1, cap, max_outer,
-                         overlap, 0, out_qs, out_l, n_sfs, overflow,
-                         incomplete, iters, work, s);
+      launch<int, false>(fused, C, seqs, lens, jt, Q, Lp1, cap, max_outer,
+                         overlap, 0, jump_k, n_windows, out_qs, out_l, n_sfs,
+                         overflow, incomplete, iters, work, jump_work, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

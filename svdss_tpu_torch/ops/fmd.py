@@ -32,9 +32,15 @@ because each row spans 256 symbols, both resolve from the one row at lo
 whenever off(lo) + sz <= 256, and a wider extension takes a second step
 that reads the row at hi (`extend_rank_step`).
 
-The functions here are the plain PyTorch versions. The search hot loop
+The rank functions here are plain PyTorch versions. The search hot loop
 runs `extend_rank_step` inside the CUDA kernel of ``csrc/pingpong.cu``;
 these serve the CPU path, the tests, and the kernel's on-card check.
+
+`build_jump_table` holds the bi-intervals of every ACGT k-mer (the k-mer
+jump-start of the FM search, ``Config.kmer_jump``). On a CUDA table it
+launches kernel K6 (``csrc/jump.cu``) once per level; on a CPU table it
+runs `jump_level_plain`, which extends with the full bi-interval step
+`extend_select` as the JAX package does. Both are narrow-only.
 """
 
 from __future__ import annotations
@@ -45,7 +51,10 @@ import numpy as np
 import torch
 
 from ..index.fmd import FMDIndex
-from ..utils.device import resolve_device
+from ..utils.device import (check_launch, load_kernels, resolve_device,
+                            stream_handle)
+
+launches = 0     # kernel K6 launches since the last reset
 
 # order position of each symbol in the fmd cumulative assignment:
 # $=0, T=1, G=2, C=3, A=4, N=5 (complement-sorted appended symbols)
@@ -249,3 +258,137 @@ def extend_rank_step(index: DeviceFMDIndex, pos, sz, c_sel, do, pend,
     sz_n = torch.where(pend, anchor - p_rank, cnt)
     pos_n = lookup_C(index, c_sel) + rank_lo
     return pos_n, sz_n, complete, pend_next, anchor
+
+
+# ---------------------------------------------------------------- jump table
+
+def ord6(c: torch.Tensor) -> torch.Tensor:
+    """Complement-order position of a symbol ($=0, T=1, G=2, C=3, A=4,
+    N=5)."""
+    return torch.where(c == 0, 0, torch.where(c == 5, 5, 5 - c))
+
+
+def _gathered_rank(index: DeviceFMDIndex, pos, c_sel, o_sel):
+    """Rank of c_sel and the count of symbols ordered before o_sel in
+    BWT[0:pos), each from the row at pos: its checkpoint plus the span
+    positions below pos & 127."""
+    rows = index.fused[(pos >> LOG_BLOCK).long()]
+    occ, sym = _unpack_rows(index, rows)
+    iota = torch.arange(SPAN, device=pos.device, dtype=torch.int32)
+    m = iota[None, :] < (pos & (DEV_BLOCK - 1))[:, None]
+    rank = (((sym == c_sel[:, None]) & m).sum(dim=1, dtype=torch.int32)
+            + occ.gather(1, c_sel[:, None].long())[:, 0])
+    ordr = (((ord6(sym) < o_sel[:, None]) & m).sum(dim=1, dtype=torch.int32)
+            + rows[:, 8:14].gather(1, o_sel[:, None].long())[:, 0])
+    return rank, ordr
+
+
+def extend_select(index: DeviceFMDIndex, x0, x1, sz, is_back, c_sel, do):
+    """Extend each lane's bi-interval (x0, x1, sz) by its selected symbol:
+    the fused `rb3_fmd_extend` for one child, with rank and complement-
+    order counts read at both endpoints lo and hi = lo + sz.
+
+    is_back True prepends c_sel (ranks at the x0 side); False is the
+    forward child ok[c_sel] (ranks at the x1 side). Lanes with do False
+    run a 0-width query at position 0; callers mask them. Narrow tables
+    only, as in the JAX package."""
+    if index.wide:
+        raise ValueError("extend_select is narrow-only (jump tables)")
+    lo = torch.where(do, torch.where(is_back, x0, x1), 0)
+    hi = lo + torch.where(do, sz, 0)
+    o_sel = ord6(c_sel)
+    rank_lo, ord_lo = _gathered_rank(index, lo, c_sel, o_sel)
+    rank_hi, ord_hi = _gathered_rank(index, hi, c_sel, o_sel)
+    xr = lookup_C(index, c_sel) + rank_lo
+    xo = torch.where(is_back, x1, x0) + (ord_hi - ord_lo)
+    return (torch.where(is_back, xr, xo), torch.where(is_back, xo, xr),
+            rank_hi - rank_lo)
+
+
+def jump_level_plain(index: DeviceFMDIndex, parents: torch.Tensor,
+                     chunk: int = 1 << 18) -> torch.Tensor:
+    """Plain version of kernel K6: the [4n, 4] rows (x0, x1, sz, 0) of the
+    backward extensions of n parent rows by A, C, G, T, child (c - 1) * n
+    + p of parent p. A parent with sz 0 gives (C[c], its x1, 0, 0), as
+    the JAX package's masked lanes do. Parents go `chunk` at a time, to
+    bound the unpacked rows' memory."""
+    n = parents.shape[0]
+    out = torch.zeros((4 * n, 4), dtype=torch.int32, device=parents.device)
+    for s0 in range(0, n, chunk):
+        par = parents[s0:s0 + chunk]
+        x0, x1, sz = par[:, 0], par[:, 1], par[:, 2]
+        do = sz > 0
+        back = torch.ones_like(do)
+        for c in range(1, 5):
+            cs = torch.full_like(x0, c)
+            r0, r1, rs = extend_select(index, x0, x1, sz, back, cs, do)
+            rows = out[(c - 1) * n + s0:(c - 1) * n + s0 + len(par)]
+            rows[:, 0], rows[:, 1] = r0, r1
+            rows[:, 2] = torch.where(do, rs, 0)
+    return out
+
+
+def level_one(index: DeviceFMDIndex) -> torch.Tensor:
+    """The [4, 4] rows of the single symbols A..T: (C[c], C[comp c],
+    C[c + 1] - C[c], 0)."""
+    C = index.C
+    c = torch.arange(1, 5, device=C.device)
+    return torch.stack([C[c], C[5 - c], C[c + 1] - C[c],
+                        torch.zeros_like(C[c])], dim=1).contiguous()
+
+
+def build_jump_table(index: DeviceFMDIndex, k: int) -> torch.Tensor:
+    """Bi-intervals of every ACGT k-mer, level by level: an int32 [4^k, 4]
+    table of (x0, x1, sz, 0) rows on the index's device, keyed by
+    sum (sym - 1) * 4^i with the last symbol at 4^0 (the child key of a
+    prepended symbol c is (c - 1) * 4^j + the parent's). Absent k-mers have
+    sz 0, with the columns the JAX package's `build_jump_table` gives them.
+    A CUDA table launches kernel K6 k - 1 times; a CPU table runs the plain
+    version."""
+    if index.wide:
+        raise ValueError("k-mer jump tables are narrow-only")
+    if not 1 <= k <= 15:
+        raise ValueError("jump table k must be in [1, 15]")
+    if not index.fused.is_cuda:
+        return build_jump_table_plain(index, k)
+    rows = level_one(index)
+    if k == 1:
+        return rows
+    # levels 1..k-2 alternate between two buffers; the last writes the
+    # table itself
+    table = torch.empty((4 ** k, 4), dtype=torch.int32, device=index.device)
+    bufs = [torch.empty((4 ** (k - 1), 4), dtype=torch.int32,
+                        device=index.device) for _ in range(min(2, k - 2))]
+    for j in range(1, k):
+        out = table if j == k - 1 else bufs[(j - 1) % 2][:4 ** (j + 1)]
+        _launch_jump_level(index, rows, out)
+        rows = out
+    return table
+
+
+def build_jump_table_plain(index: DeviceFMDIndex, k: int) -> torch.Tensor:
+    """Plain version of `build_jump_table`: the level loop over
+    `jump_level_plain`, on the table's device."""
+    rows = level_one(index)
+    for _ in range(1, k):
+        rows = jump_level_plain(index, rows)
+    return rows
+
+
+def _launch_jump_level(index: DeviceFMDIndex, parents: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    global launches
+    n = parents.shape[0]
+    if (index.fused.dtype != torch.int32 or index.fused.shape[1] != ROW_WORDS
+            or not index.fused.is_contiguous() or index.C.dtype != torch.int32
+            or parents.dtype != torch.int32 or parents.shape != (n, 4)
+            or not parents.is_contiguous() or out.shape != (4 * n, 4)
+            or not out.is_contiguous() or out.device != index.device
+            or parents.device != index.device):
+        raise TypeError("jump_level takes a narrow int32 table, int32 [n, 4] "
+                        "parents and a [4n, 4] output on one device")
+    rc = load_kernels()["jump"].svdss_jump_level(
+        index.fused.data_ptr(), index.C.data_ptr(), parents.data_ptr(), n,
+        out.data_ptr(), stream_handle(index.device))
+    check_launch(rc, "jump_level")
+    launches += 1

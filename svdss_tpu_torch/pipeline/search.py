@@ -8,8 +8,10 @@ around the batched device kernel:
     load_batch_bam/process_batch (ping_pong.cpp:66-79, 196-203);
   * encode reads to nt6 and search them on the device with one of three
     engines: the FM rank walk (ops/pingpong.py, kernel K2 on the card,
-    wide mode past 2^31 symbols) in length-bucketed lane batches, the
-    narrow anchor-verify engine (ops/anchor_device.py) — one-shot batches
+    wide mode past 2^31 symbols; with ``Config.kmer_jump`` from 2^22
+    symbols, jump-started from a k-mer table built by kernel K6) in
+    length-bucketed lane batches, the narrow anchor-verify engine
+    (ops/anchor_device.py) — one-shot batches
     (kernel K3) or the persistent-lane pool (ops/anchor_pool.py, kernel
     K4) — or the wide anchor engine over forward-strand tables
     (ops/anchor_wide_device.py, kernel K5: parked-phase waves when the
@@ -33,6 +35,7 @@ import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..index.fmd import FMDIndex
@@ -45,7 +48,7 @@ from ..ops.anchor_wide import AnchorIndexWide, make_heavy_resolver
 from ..ops.anchor_wide_device import (WideWaveRun, batch_search_anchor_wide,
                                       build_device_anchor_wide)
 from ..ops.assemble import assemble
-from ..ops.fmd import DeviceFMDIndex
+from ..ops.fmd import DeviceFMDIndex, build_jump_table
 from ..ops.pingpong import batch_search, pack_reads
 from ..ops.pingpong_host import ping_pong_search
 from ..utils.device import resolve_device
@@ -261,14 +264,13 @@ class _DeviceSearcher:
     is chosen as the JAX package chooses it: anchor when anchor tables are
     given and the index holds 2^26 symbols or more (or ``--engine
     anchor``), unless narrow tables report a phase-heavy rate above 5% or
-    the cost model prefers FM over wide tables. Any lane that overflows or
-    needs the exact path is redone on the host."""
+    the cost model prefers FM over wide tables. The FM engine builds a
+    k-mer jump table (``config.kmer_jump``) on indexes of 2^22 symbols or
+    more, as the JAX package does; the anchor engines ignore it. Any lane
+    that overflows or needs the exact path is redone on the host."""
 
     def __init__(self, index: FMDIndex, config: Config, device=None,
                  anchor=None):
-        if config.kmer_jump:
-            raise NotImplementedError(
-                "the k-mer jump table is not ported yet (kmer_jump=0)")
         self.device = resolve_device(device)
         self.index = index
         self.config = config
@@ -329,6 +331,19 @@ class _DeviceSearcher:
             self.dev = DeviceFMDIndex.from_host(index, self.device)
             logger.info("search: FM engine on %s (fused table %.1f MiB)",
                         self.device, self.dev.nbytes / 2 ** 20)
+        self.jump_k = 0
+        self.jump_table = None
+        # the JAX package's gate: the FM engine builds the table from 2^22
+        # symbols
+        if self.dev is not None and config.kmer_jump \
+                and index.n >= (1 << 22):
+            t0 = time.time()
+            self.jump_k = config.kmer_jump
+            self.jump_table = build_jump_table(self.dev, self.jump_k)
+            if self.jump_table.is_cuda:   # the log line times the build
+                torch.cuda.synchronize(self.device)
+            logger.info("search: built %d-mer jump table in %.1fs",
+                        self.jump_k, time.time() - t0)
         self.lanes = config.lanes
         self.cap = config.max_sfs_per_read
         self.smoothed_input = False
@@ -393,7 +408,9 @@ class _DeviceSearcher:
                                       overlap=self.config.overlap)
         else:
             res = batch_search(self.dev, seqs, lens, cap=cap,
-                               overlap=self.config.overlap)
+                               overlap=self.config.overlap,
+                               jump_table=self.jump_table,
+                               jump_k=self.jump_k)
         return (encoded, res)
 
     def _redo_pool(self):

@@ -51,8 +51,11 @@ SIGNATURES = {
     "anchor_wide": {
         "svdss_anchor_wide": [_P] * 4 + [_I] * 7 + [_P] * 6,
     },
+    "jump": {
+        "svdss_jump_level": [_P] * 3 + [_I] + [_P] * 2,
+    },
     "pingpong": {
-        "svdss_pingpong_fm": [_P] * 4 + [_I] * 6 + [_P] * 8,
+        "svdss_pingpong_fm": [_P] * 5 + [_I] * 8 + [_P] * 9,
     },
     "wavefront": {
         "svdss_wavefront_dp": [_P] * 4 + [_I] * 9 + [_P] * 4,

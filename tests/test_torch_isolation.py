@@ -22,7 +22,7 @@ from svdss_tpu_torch.ops.anchor_wide import (build_anchor_index_wide,
 from svdss_tpu_torch.ops.anchor_wide_device import (
     batch_search_anchor_wide, batch_search_anchor_wide_waves,
     build_device_anchor_wide)
-from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
+from svdss_tpu_torch.ops.fmd import DeviceFMDIndex, build_jump_table
 from svdss_tpu_torch.ops.pingpong import batch_search, pack_reads
 from svdss_tpu_torch.pipeline.call import run_call
 from svdss_tpu_torch.pipeline.search import run_search
@@ -100,10 +100,15 @@ def test_kernel_entry_points_default_to_cuda(no_cuda, tiny):
     aidx = build_anchor_index(genome_text(chroms))
     with pytest.raises(RuntimeError):
         build_device_anchor(aidx)
-    # the same calls with device="cpu" run the plain versions
+    # the same calls with device="cpu" run the plain versions (the jump
+    # table is built on its index's device)
     dev = DeviceFMDIndex.from_host(index, "cpu")
     seqs, lens = pack_reads([np.ones(4, dtype=np.uint8)], device="cpu")
     assert int(batch_search(dev, seqs, lens).n_sfs[0]) >= 0
+    table = build_jump_table(dev, 3)
+    assert table.device == torch.device("cpu") and table.shape == (64, 4)
+    assert int(batch_search(dev, seqs, lens, jump_table=table,
+                            jump_k=3).n_sfs[0]) >= 0
     assert batch_align(pair, device="cpu")[0][0] < 0
     adev, params = build_device_anchor(aidx, "cpu")
     assert int(batch_search_anchor(adev, params, seqs, lens).n_sfs[0]) >= 0

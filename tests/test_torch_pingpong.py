@@ -139,6 +139,15 @@ def test_padding_lanes_and_empty_batch(genome, tables):
 
 
 def test_kmer_jump_not_ported(tables):
+    """The k-mer jump is narrow-only, as in the JAX package (its wide
+    search asserts it away): a wide table with a jump table raises, and so
+    does a jump_k without a table (tests/test_torch_jump.py holds the
+    narrow jump mode against the JAX package)."""
+    index = build_index({"g": "ACGTTGCAAC" * 30})
+    wide = DeviceFMDIndex.from_host(index, "cpu", force_wide=True)
     seqs, lens = pack_reads([np.ones(4, dtype=np.uint8)], device="cpu")
-    with pytest.raises(NotImplementedError):
+    table = torch.zeros((4 ** 4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="narrow"):
+        batch_search(wide, seqs, lens, jump_table=table, jump_k=4)
+    with pytest.raises(ValueError):
         batch_search(tables[2], seqs, lens, jump_k=8)
