@@ -16,9 +16,13 @@ checkout at first use. Phases, each printing one JSON line:
            64 lanes held against the host oracle); the one-shot anchor
            kernel on the anchor read mix and 512 long reads over another
            1 Mbp genome (forced overflow, round-limit, overlap 0 and
-           heavy-k-mer cases; 64 lanes against the host oracle); the pool
-           kernel on a stream longer than its lane count, and against the
-           one-shot kernel under the same per-lane budget; the FM kernel's
+           heavy-k-mer cases; 64 lanes against the host oracle), and on
+           the reads of lane_edge_case, aimed at its key and compare steps
+           (with overflow, overlap 0 and per-lane budget variants); the
+           pool kernel on a stream longer than its lane count with 1, 33
+           and 4,096 reads in flight, against the one-shot kernel under the
+           same per-lane budget and across the three, and on the edge
+           reads; the FM kernel's
            wide mode at limb widths 31 and 17 (high limbs zero, then
            not), also against narrow K2; the wide anchor kernel, one shot
            and in parked-phase waves, on the wide table variants over a
@@ -46,15 +50,17 @@ checkout at first use. Phases, each printing one JSON line:
            recall and precision are scored against the planted SVs. Each
            run's kernel launches are counted from 0;
   timing   each kernel and its plain version timed with CUDA events on the
-           inputs the main path gave it (K2's wide mode on the force-wide
+           inputs the main path gave it (the anchor kernels with their time
+           a round of the slowest read; K2's wide mode on the force-wide
            table of the run's index with the FM run's reads; the 12-mer
            jump table of the run's index, held whole against its plain
            version; K2's jump mode on the FM run's reads with that table,
            with its rank steps beside those without jumps), and the least
            time the card could take for the same work.
 
-Then the card's nvidia-smi line, the kernel table as one JSON line, and
-last ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
+The env line carries each kernel's registers and spills (nvcc's
+``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
+JSON line, and last ``{"ok": true, "device": {...}}``. Any failed phase raises: the exit
 code is then not 0 and no result line is printed. Without a card it stops
 at once with exit code 2.
 """
@@ -189,9 +195,32 @@ def phase_env() -> dict:
             "python": sys.version.split()[0],
             "native_build_s": round(native_s, 3),
             "kernel_build_s": round(build_info["seconds"], 3),
-            "kernels_built": build_info["built"]}
+            "kernels_built": build_info["built"],
+            "ptxas": {f"{name}.cu": ptxas_usage(log) for name, log in
+                      build_info.get("ptxas", {}).items()}}
     emit(info)
     return info
+
+
+def ptxas_usage(log: str) -> list:
+    """Each kernel's registers, stack frame and spills from nvcc's
+    `-Xptxas -v` output, in the order they were compiled."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'\S*?\d([a-z][a-z_]*_kernel)", line)
+        if m:
+            out.append({"kernel": m.group(1)})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and out:
+            out[-1].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 # -------------------------------------------------------------- kernels
@@ -419,6 +448,96 @@ def anchor_mix(enc: np.ndarray, rng, n: int = 48, L: int = 300) -> list:
 ANCHOR_FIELDS = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
 
 
+def lane_edge_case(seed: int = 5):
+    """(genome, cmax, reads) aimed at the anchor lane machine's key and
+    compare steps: a 20 kb genome (random, a 400 bp unit 12 times, random)
+    whose tables take cmax 4, so the unit's k-mers go to the host; and nt6
+    reads that give verify rounds of 0, 1 and 128 symbols, a mismatch at
+    the last symbol of a 128-symbol round, matches that run to a row's end
+    and continue, compares that run into the end of the two-strand text,
+    an N in a key window, keys above cmax, and reads of 63-193 symbols on
+    both strands, whose rows cross the 64-symbol stride.
+    tests/test_torch_anchor_lanes.py shows that each of these is reached."""
+    from svdss_tpu_torch.ops.anchor import pick_k
+    from svdss_tpu_torch.utils.seq import encode_nt6, revcomp_nt6
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    head, unit = rand(9_000), rand(400)
+    g = head + unit * 12 + rand(6_200)
+    # a 200 bp piece S twice: at P1, and at P2 behind another symbol
+    P1, P2 = 7_000, 14_588
+    g = g[:P2] + g[P1:P1 + 200] + g[P2 + 200:]
+    if g[P1 - 1] == g[P2 - 1]:
+        g = g[:P1 - 1] + "ACGT"["CGTA".index(g[P1 - 1])] + g[P1:]
+    G = len(g)
+    enc = encode_nt6(g)
+    k = pick_k(2 * G + 2)
+
+    def snv(r, at):
+        r = r.copy()
+        r[at] = r[at] % 4 + 1
+        return r
+    reads = []
+    # verify rounds of lim = maxlen - k = 0 and 1: reads of k and k + 1
+    # symbols, on both strands
+    for m in (k, k + 1):
+        r = enc[2_000:2_000 + m].copy()
+        reads += [r, revcomp_nt6(r)]
+    # exact 600-symbol reads at 64 start phases: the backward phase
+    # verifies the whole read on the reverse strand; at the phase where
+    # text and read rows line up (s = 2G + 1 mod 64) its rounds after the
+    # first compare 128 symbols each, and every phase runs to a row's end
+    # and continues
+    L = 600
+    reads += [enc[s:s + L].copy() for s in range(500, 500 + 65 * 64, 65)]
+    # that aligned read with an SNV where the second verify round compares
+    # its 128th symbol (read position L - 256 + (-L mod 64))
+    s = 500 + (2 * G + 1 - 500) % 64
+    reads.append(snv(enc[s:s + L], L - 256 + (-L) % 64))
+    # compares that reach the text's end ($ at n - 1, zeros past n): the
+    # reverse strand of a read that begins at the chromosome's start;
+    # and the chromosome's end on the forward strand
+    x = encode_nt6(rand(100))
+    reads += [np.concatenate([x, enc[:300]]),
+              np.concatenate([enc[G - 300:], x])]
+    # an N in the first key window (the read's last k symbols)
+    reads.append(enc[3_000:3_200].copy())
+    reads[-1][-3] = 5
+    # keys above cmax: reads inside the repeated unit
+    reads += [enc[9_100:9_400].copy(), revcomp_nt6(enc[10_000:10_300])]
+    # rows that cross the 64-symbol stride, on both strands, with SNVs
+    for m in (63, 64, 65, 127, 128, 129, 191, 192, 193):
+        r = snv(snv(enc[4_000 + 7 * m:4_000 + 8 * m].copy(), m // 3),
+                2 * m // 3)
+        reads += [r, revcomp_nt6(r)]
+    # a long forward verify: c + S + W, where S + W occurs only at P1 and
+    # c + S only at P2, so the backward phase stops at c and the forward
+    # phase from c verifies S, past a row's end; P2 - 60 is a multiple of
+    # 64, so its second round compares 128 symbols
+    r = np.concatenate([enc[P2 - 60:P2 + 200], enc[P1 + 200:P1 + 300]])
+    reads += [r, revcomp_nt6(r)]
+    # a chimera of two distant pieces, both strands
+    r = np.concatenate([enc[5_000:5_200], enc[16_000:16_250]])
+    reads += [r, revcomp_nt6(r)]
+    return g, 4, reads
+
+
+def lane_edge_budget(n: int) -> np.ndarray:
+    """Per-lane round budgets of 3-60 for lane_edge_case's n reads: some
+    lanes finish within theirs, the others are cut."""
+    return np.random.default_rng(8).integers(3, 61, n).astype(np.int32)
+
+
+def pool_flags(res) -> torch.Tensor:
+    """K4's flags of a K3 result run under the pool's per-read budget."""
+    from svdss_tpu_torch.ops.anchor_pool import FALLBACK, OVERFLOW
+    return (res.incomplete.to(torch.uint8) * FALLBACK
+            | res.overflow.to(torch.uint8) * OVERFLOW)
+
+
 def check_anchor(rng) -> list:
     """K3 and K4 against their plain versions (all fields and the work
     counts), K4 against K3 under the same per-lane budget, and 64
@@ -497,42 +616,77 @@ def check_anchor(rng) -> list:
         got = list(zip(qs[i, :k].tolist(), ln[i, :k].tolist()))
         oracle_bad += got != ping_pong_search(index, enc[i])
 
-    # K4 on a stream longer than its lanes (64), mixed lengths; against
-    # its plain version, and against K3 under the same per-lane budget
-    syms, offs, lens = (torch.from_numpy(a).cuda() for a in
-                        anchor_pool.pack_chunk(enc))
-    work = torch.zeros(4, dtype=torch.int64, device="cuda")
-    before = anchor_pool.launches
-    got4 = anchor_pool.pool_search(dev, params, syms, offs, lens, Lp1=L + 1,
-                                   cap=cap, lanes=64, work=work)
-    torch.cuda.synchronize()
-    if anchor_pool.launches != before + 1:
-        raise RuntimeError("pool_search did not launch K4")
-    plain_work = torch.zeros_like(work)
-    want4 = anchor_pool.pool_search_plain(dev, params, syms, offs, lens,
-                                          L + 1, cap, -1, plain_work)
-    err4 = max_abs_diff(list(got4) + [work], list(want4) + [plain_work])
-    seqs, lens3 = pack_reads(enc, pad_to=L, device="cuda")
-    k3 = anchor_device.batch_search_anchor(
-        dev, params, seqs, lens3, cap=cap,
-        budget=anchor_pool.lane_budget(lens3).to(torch.int32))
-    flags3 = (k3.incomplete.to(torch.uint8) * anchor_pool.FALLBACK
-              | k3.overflow.to(torch.uint8) * anchor_pool.OVERFLOW)
-    err43 = max_abs_diff(list(got4), [k3.qs, k3.length, k3.n_sfs, flags3])
-    pool_case = {"case": "stream of %d reads, 64 lanes" % len(enc),
-                 "L": L, "cap": cap, "max_abs_err": err4,
-                 "vs_one_shot_same_budget_max_abs_err": err43,
-                 "host_flags": int((got4.flags != 0).sum()),
-                 "work": dict(zip(anchor_device.WORK_FIELDS,
-                                  work.tolist()))}
+    # K4 on a stream longer than its lanes, mixed lengths, with 1, 33 and
+    # 4,096 reads in flight: each against its plain version, against K3
+    # under the same per-lane budget and against the first; and on the
+    # lane-edge reads (K4's lanes read the reads unpadded)
+    pool_cases = []
+
+    def pool_compare(name, d, p, encs, lanes_list):
+        syms, offs, lens = (torch.from_numpy(a).cuda() for a in
+                            anchor_pool.pack_chunk(encs))
+        plain_work = torch.zeros(4, dtype=torch.int64, device="cuda")
+        want = anchor_pool.pool_search_plain(d, p, syms, offs, lens, L + 1,
+                                             cap, -1, plain_work)
+        seqs, lens3 = pack_reads(encs, pad_to=L, device="cuda")
+        k3 = anchor_device.batch_search_anchor(
+            d, p, seqs, lens3, cap=cap,
+            budget=anchor_pool.lane_budget(lens3).to(torch.int32))
+        flags3 = pool_flags(k3)
+        first = None
+        for lanes in lanes_list:
+            work = torch.zeros(4, dtype=torch.int64, device="cuda")
+            before = anchor_pool.launches
+            got = anchor_pool.pool_search(d, p, syms, offs, lens, Lp1=L + 1,
+                                          cap=cap, lanes=lanes, work=work)
+            torch.cuda.synchronize()
+            if anchor_pool.launches != before + 1:
+                raise RuntimeError("pool_search did not launch K4")
+            first = first or got
+            pool_cases.append({
+                "case": f"{name}: {len(encs)} reads, {lanes} lanes",
+                "L": L, "cap": cap,
+                "max_abs_err": max_abs_diff(list(got) + [work],
+                                            list(want) + [plain_work]),
+                "vs_one_shot_same_budget_max_abs_err": max_abs_diff(
+                    list(got), [k3.qs, k3.length, k3.n_sfs, flags3]),
+                "vs_first_lanes_max_abs_err": max_abs_diff(list(got),
+                                                           list(first)),
+                "host_flags": int((got.flags != 0).sum()),
+                "work": dict(zip(anchor_device.WORK_FIELDS,
+                                 work.tolist()))})
+
+    pool_compare("stream", dev, params, enc, (1, 33, 4096))
+
+    # the lane machine's edges (lane_edge_case): verify rounds of 0, 1 and
+    # 128 symbols, a mismatch at a round's 128th symbol, rounds that
+    # continue, compares into the text's end, an N in a key window, keys
+    # above cmax, rows across the 64-symbol stride on both strands; with
+    # the overflow, overlap 0 and budget variants
+    eg, ecmax, edge = lane_edge_case()
+    edev, eparams = anchor_device.build_device_anchor(
+        build_anchor_index(genome_text({"e": eg}), cmax=ecmax), "cuda")
+    compare("lane edges", edev, eparams, edge, cap=cap)
+    compare("lane edges, cap=2", edev, eparams, edge, cap=2)
+    compare("lane edges, overlap=0", edev, eparams, edge, cap=cap,
+            overlap=0)
+    compare("lane edges, budgets of 3-60 rounds", edev, eparams, edge,
+            cap=cap, budget=torch.from_numpy(
+                lane_edge_budget(len(edge))).cuda())
+    if not cases[-1]["incomplete"]:
+        raise RuntimeError("the budget case cut no lane")
+    pool_compare("lane edges", edev, eparams, edge, (33,))
+
+    errs4 = [max(c["max_abs_err"], c["vs_one_shot_same_budget_max_abs_err"],
+                 c["vs_first_lanes_max_abs_err"]) for c in pool_cases]
     bad3 = sum(c["max_abs_err"] > 0 for c in cases) + oracle_bad
     return [{"name": "anchor_batch", "cases": cases,
              "oracle_lanes": len(order), "oracle_mismatches": oracle_bad,
              "mismatches": bad3,
              "max_abs_err": max(c["max_abs_err"] for c in cases)},
-            {"name": "anchor_pool", "cases": [pool_case],
-             "mismatches": int(err4 > 0) + int(err43 > 0),
-             "max_abs_err": max(err4, err43)}]
+            {"name": "anchor_pool", "cases": pool_cases,
+             "mismatches": sum(e > 0 for e in errs4),
+             "max_abs_err": max(errs4)}]
 
 
 PP_FIELDS = ("qs", "length", "n_sfs", "overflow", "incomplete", "iters")
@@ -1482,7 +1636,8 @@ def time_anchor_batch(spy: Spy) -> dict:
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap} "
                      f"max_rounds={kw.get('max_rounds')}",
             "work": dict(zip(anchor_device.WORK_FIELDS, work)),
-            "iters": int(got.iters), "bound_bytes": nbytes,
+            "iters": int(got.iters), "ms_per_round": ms / int(got.iters),
+            "bound_bytes": nbytes,
             "bound_ops": ops, "table_GiB": index.small.numel() * 4 / 2 ** 30,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": err}
@@ -1505,11 +1660,24 @@ def time_anchor_pool(spy: Spy) -> dict:
         "r", anchor_pool.pool_search_plain(index, params, syms, offs, lens,
                                            Lp1, cap, kw.get("overlap", -1))))
     err = max_abs_diff(list(got), list(holder["r"]))
+    # the slowest read's rounds: K3 on the same reads under the pool's
+    # per-read budget (its iters), which must give K4's results
+    col = torch.arange(Lp1, device=syms.device)[None, :]
+    src = (offs[:, None] + col).clamp(max=syms.shape[0] - 1)
+    seqs = torch.where(col < lens[:, None], syms[src], 0).to(torch.uint8)
+    budget = anchor_pool.lane_budget(lens).to(torch.int32)
+    k3 = anchor_device.batch_search_anchor(
+        index, params, seqs, lens, cap=cap, budget=budget,
+        max_rounds=int(budget.max()), overlap=kw.get("overlap", -1))
+    err = max(err, max_abs_diff(list(got), [k3.qs, k3.length, k3.n_sfs,
+                                            pool_flags(k3)]))
+    iters = int(k3.iters)
     # per read: its offset into syms (8 B), n_sfs and flags
     nbytes, ops = anchor_bound(index, lens, work, got.n_sfs, 8 * M + 5 * M)
     bms, by = bound(nbytes, ops)
     return {"shape": f"M={M} lanes={kw.get('lanes')} L+1={Lp1} cap={cap}",
             "work": dict(zip(anchor_device.WORK_FIELDS, work)),
+            "slowest_read_rounds": iters, "ms_per_round": ms / iters,
             "host_flags": int((got.flags != 0).sum()),
             "bound_bytes": nbytes, "bound_ops": ops, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,

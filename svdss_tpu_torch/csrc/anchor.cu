@@ -1,5 +1,5 @@
 // Kernels K3 (anchor_batch) and K4 (anchor_pool): the narrow anchor-verify
-// SFS search, one thread per read lane, both driving one lane machine.
+// SFS search, one warp per read, both driving one lane machine.
 //
 // K3 replaces svdss_tpu/ops/anchor_jax.py:646 batch_search_anchor (an XLA
 // lockstep while-loop over the round body _make_round_body :294, with the
@@ -7,7 +7,7 @@
 // persistent-lane pool's three XLA functions, svdss_tpu/ops/anchor_pool.py
 // :114 step (rounds, then retire and refill on the device), :200 push
 // (reads into the device reservoir) and :232 fetch (results out of the
-// ring): here one launch takes a chunk of reads, and each lane takes the
+// ring): here one launch takes a chunk of reads, and each warp takes the
 // next read from an atomic counter the moment it finishes one.
 //
 // Results equal the JAX functions' field for field: qs/length in emission
@@ -23,23 +23,43 @@
 // from the padded width Lp1 and reads symbols straight from the read and
 // the text.
 //
-// What bounds it on an H100: each round of a lane makes one dependent read
-// of a 16-byte row at a data-dependent address of the `small` table (4^k
-// meta rows: 4.3 GB at k = 14, far past the 50 MB L2) and, on a verify
-// round, a short run of text words at a data-dependent address. A lane is a
-// serial chain of such rounds, so the kernel is bound by memory latency,
-// not by bytes or operations; the bytes the work must move are one table
-// row and one text row per round.
+// What bounds it on an H100: a lane is a serial chain of rounds. Each KEY,
+// SUB and POS round makes one dependent read of a 16-byte row at a
+// data-dependent address of the `small` table (4^k meta rows: 4.3 GB at
+// k = 14, far past the 50 MB L2, so a DRAM round trip, often with a TLB
+// miss), and a verify round then reads text words at an address that row
+// gave. The bytes and operations a round needs are few (one table row, one
+// text row, up to 128 compares), so a launch takes as long as its slowest
+// read's chain of dependent loads: the kernel is bound by memory latency,
+// not by bytes or operations.
 //
-// What the design does about it: lane state lives in registers and a lane
-// runs to completion with no lockstep barrier, so no lane waits for the
-// slowest one (the XLA loop ran every lane to the batch's last round, and
-// the pool refilled lanes only every 64-round superstep). The TPU's row
-// gathers (derive_chunks), its funnel shift, its [Q, 8] emission staging,
-// its flip-after-pad RC buffer and the pool's reservoir and result ring are
-// gone: a thread derives the RC symbol as 5 - P[len-1-x] for 1..4, compares
-// symbols in a loop, and writes emissions straight to [Q, cap] while the
+// What the design does about it: it keeps each round's own work off that
+// chain. The 32 threads of a warp hold one read's lane state as
+// warp-uniform registers, so every branch of the machine (mode, strand,
+// the block of 8 rounds) is taken by the whole warp. KEY builds the k-mer
+// in one step: thread i < k loads key digit i, one ballot gives the valid
+// digits and one OR-reduction the key. VER compares up to 128 symbols in
+// one step, four a thread, the text from its nibble words (one word load
+// for 8 symbols), and one min-reduction gives the first mismatch. A
+// thread's read symbols for the compare are loaded before the round's
+// table row, which they do not depend on, so only the row and the text
+// stay on the chain. Thread 0 writes the emissions and the per-read
+// results; the warp zeroes the rest of the [cap] rows. K4's warps take the
+// next read from an atomic counter; K3's warp w runs lane w.
+//
+// What is left: one dependent table-row read (and, on a verify, a text
+// read behind it) per round, times the slowest read's rounds. Only more
+// reads in flight hide that latency, and a launch has at most
+// min(lanes, reads) warps, all resident on the card's 132 SMs at the main
+// path's sizes. The TPU's row gathers (derive_chunks), funnel shift,
+// [Q, 8] emission staging, flip-after-pad RC buffer and the pool's
+// reservoir and result ring are gone: a thread derives an RC symbol as
+// 5 - P[len-1-x] for 1..4, and emissions go straight to [Q, cap] while the
 // index is below cap.
+//
+// Launch shape: WARPS warps (reads) a block, fixed here; a K3 grid covers
+// its Q lanes, a K4 grid min(lanes, M) warps. It depends on no property of
+// the card.
 
 #include <climits>
 #include <cstdint>
@@ -49,7 +69,11 @@ namespace {
 
 constexpr int SPAN = 128;        // symbols per read or text row
 constexpr int STAGE_EVERY = 8;   // rounds between overflow checks
-constexpr int THREADS = 64;
+constexpr int WARP = 32;
+constexpr int WARPS = 4;         // reads (warps) per block
+constexpr int THREADS = WARPS * WARP;
+constexpr int PER_THREAD = SPAN / WARP;   // compared symbols per thread
+constexpr unsigned FULL = 0xffffffffu;
 enum { KEY = 0, SUB = 1, POS = 2, VER = 3 };
 
 struct Tables {
@@ -81,15 +105,30 @@ __device__ __forceinline__ int comp6(int c) {
 // that buffer reversed. P holds plen symbols (zero past them).
 __device__ __forceinline__ int read_sym(const uint8_t* P, int plen, int side,
                                         int w8, int y) {
-  if (side == 0) return y < plen ? P[y] : 0;
+  if (side == 0) return (y >= 0 && y < plen) ? __ldg(P + y) : 0;
   const int j = w8 - 1 - y;
-  return (j >= 0 && j < plen) ? comp6(P[j]) : 0;
+  return (j >= 0 && j < plen) ? comp6(__ldg(P + j)) : 0;
 }
 
-__device__ __forceinline__ int text_sym(const Tables& T, int p) {
-  if (p < 0 || p >= T.n) return 0;
-  const uint32_t w = __ldg(T.text + (size_t)(p >> 6) * 16 + ((p & 63) >> 3));
-  return (w >> (4 * (p & 7))) & 0xF;
+// The 32-bit text word that holds position p (0 <= p < n): row p >> 6
+// holds the 128 symbols from 64 * (p >> 6), 8 to a word.
+__device__ __forceinline__ uint32_t text_word(const Tables& T, int p) {
+  return __ldg(T.text + (size_t)(p >> 6) * 16 + ((p & 63) >> 3));
+}
+
+// The PER_THREAD text symbols at p, p + 1, ..., zero outside [0, n). Two
+// words hold them: the one at p and the one at p + PER_THREAD - 1, each
+// clamped into the text so that no load leaves it.
+__device__ __forceinline__ void text_syms(const Tables& T, int p, int* ts) {
+  const int pa = min(max(p, 0), T.n - 1);
+  const int pb = min(max(p + PER_THREAD - 1, 0), T.n - 1);
+  const uint32_t wa = text_word(T, pa), wb = text_word(T, pb);
+#pragma unroll
+  for (int i = 0; i < PER_THREAD; ++i) {
+    const int q = p + i;
+    const uint32_t w = (q >> 3) == (pa >> 3) ? wa : wb;
+    ts[i] = (q >= 0 && q < T.n) ? (w >> (4 * (q & 7))) & 0xF : 0;
+  }
 }
 
 __device__ __forceinline__ int quad(int a, int b, int c, int d, int sel) {
@@ -98,14 +137,17 @@ __device__ __forceinline__ int quad(int a, int b, int c, int d, int sel) {
   return (sel & 2) ? hi : lo;
 }
 
-// One lane from its reset state to its end: rounds in blocks of 8, with the
-// overflow check after each block. A lane whose read is shorter than 1 does
-// nothing. budget_on adds the per-lane budget: a lane still running in its
-// round number `budget` is flagged for the host (the pool's rule).
+// One lane from its reset state to its end, run by the whole warp (t is
+// the thread's index in it): rounds in blocks of 8, with the overflow
+// check after each block. Every value but a thread's symbols and its
+// compare is the same in all 32 threads. A lane whose read is shorter
+// than 1 does nothing. budget_on adds the per-lane budget: a lane still
+// running in its round number `budget` is flagged for the host (the
+// pool's rule). Thread 0 writes the emissions.
 __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
                             int len, int nwm, int cap, int max_rounds,
                             bool budget_on, int budget, int overlap,
-                            int32_t* oq, int32_t* ol, Work& wk) {
+                            int32_t* oq, int32_t* ol, Work& wk, int t) {
   const int k = T.k, j0 = T.j0;
   const int w8 = 64 * (nwm + 1);
   bool active = len >= 1, fb = false, overflow = false;
@@ -133,20 +175,36 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       const int m_r = min(max(rstart >> 6, 0), nwm - 1);
       const int col_a = rstart - (m_r << 6);
       const int ybase = m_r << 6;
+      // chained lanes read their row at u: compare from k symbols in
+      const int cmp_off = is_ver ? col_a : col_a + k;
 
-      // KEY: the k symbols from col_a (key digit i = symbol i)
+      // this thread's read symbols of a verify (row columns cmp_off + 4t
+      // onwards), loaded ahead of the table row, which they do not need
+      int rs[PER_THREAD] = {};
+      if (!is_sub) {
+        const int y = ybase + cmp_off + PER_THREAD * t;
+#pragma unroll
+        for (int i = 0; i < PER_THREAD; ++i)
+          rs[i] = read_sym(P, plen, dirb, w8, y + i);
+      }
+
+      // KEY: thread i < k holds key digit i, the symbol at col_a + i
       int key_new = 0;
       bool clean = false, floor_case = false, use_meta = false;
       bool to_sub_short = false, fb_new = false;
       if (is_key) {
-        int validm = 0;
-        for (int i = 0; i < k; ++i) {
-          const int c = col_a + i;
-          const int sym = (c >= 0 && c < SPAN)
-                              ? read_sym(P, plen, dirb, w8, ybase + c) : 0;
-          key_new |= min(max(sym - 1, 0), 3) << (2 * (k - 1 - i));
-          if (sym >= 1 && sym <= 4) validm |= 1 << i;
+        int sym = 0;
+        if (t < k) {
+          const int c = col_a + t;
+          sym = (c >= 0 && c < SPAN) ? read_sym(P, plen, dirb, w8, ybase + c)
+                                     : 0;
         }
+        const int validm = (int)__ballot_sync(
+            FULL, t < k && sym >= 1 && sym <= 4);
+        key_new = (int)__reduce_or_sync(
+            FULL, t < k ? (unsigned)min(max(sym - 1, 0), 3)
+                              << (2 * (k - 1 - t))
+                        : 0u);
         const int need = (1 << min(max(mk, 0), 30)) - 1;
         clean = (validm & need) == need;
         floor_case = maxlen <= j0;
@@ -156,7 +214,7 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       }
 
       // one small-table row: meta (KEY), bitmap words (SUB) or four
-      // positions (POS)
+      // positions (POS); one address for the whole warp
       const int key_j =
           (int)((unsigned)key >> (2 * (k - min(max(subj, 1), k))));
       const int w_idx = (int)((unsigned)key_j >> 5);
@@ -194,12 +252,12 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       const int prow_eff = k_multi ? -1 : pos_take ? (aux + occ_i) >> 2 : prow;
       if (pos_take) { p0 = s0; p1 = s1; p2 = s2; p3 = s3; }
       if (k_multi) occ1c = s3;
-      // chained lanes read their row at u: compare from k symbols in
-      const int cmp_off = is_ver ? col_a : col_a + k;
 
       // verify: compare read and text from cmp_off / tstart; a round runs
       // at most to the end of either 128-symbol row (run_valid) and to the
-      // read's end (run_cap); longer matches continue as VER rounds
+      // read's end (run_cap); longer matches continue as VER rounds.
+      // Thread t compares positions 4t .. 4t + 3; the first mismatch is
+      // the least over the warp.
       const int vcap = maxlen - k;
       bool cont_occ = false, more_occ = false, ver_resolve = false;
       bool cached = false;
@@ -214,14 +272,16 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
         const int lim = min(run_valid, run_cap);
         int f = lim;
         if (lim > 0) {
-          const int y0 = ybase + cmp_off;
-          for (int d = 0; d < lim; ++d) {
-            if (read_sym(P, plen, dirb, w8, y0 + d)
-                != text_sym(T, tstart + d)) {
-              f = d;
-              break;
-            }
+          const int d0 = PER_THREAD * t;
+          int mine = SPAN;
+          if (d0 < lim) {
+            int ts[PER_THREAD];
+            text_syms(T, tstart + d0, ts);
+#pragma unroll
+            for (int i = PER_THREAD - 1; i >= 0; --i)
+              if (d0 + i < lim && rs[i] != ts[i]) mine = d0 + i;
           }
+          f = min(__reduce_min_sync(FULL, mine), lim);
           wk.syms += f < lim ? f + 1 : lim;
         }
         ++wk.text;
@@ -268,7 +328,7 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       const bool to_fwd = resolve && is_b && !prefix_match;
       const bool emit = resolve && !is_b;
       if (emit) {
-        if (count < cap) {
+        if (count < cap && t == 0) {
           oq[count] = anc;
           ol[count] = m_res + 1;
         }
@@ -323,9 +383,10 @@ __device__ __forceinline__ void add_work(unsigned long long* work,
   atomicAdd(work + 3, wk.syms);
 }
 
+// The unwritten rest of a lane's [cap] rows, zeroed by the whole warp.
 __device__ __forceinline__ void zero_tail(int32_t* oq, int32_t* ol, int n,
-                                          int cap) {
-  for (int i = n; i < cap; ++i) {
+                                          int cap, int t) {
+  for (int i = n + t; i < cap; i += WARP) {
     oq[i] = 0;
     ol[i] = 0;
   }
@@ -340,47 +401,57 @@ anchor_batch_kernel(Tables T, const uint8_t* __restrict__ seqs,
                     int32_t* __restrict__ n_sfs, uint8_t* __restrict__ ovf_o,
                     uint8_t* __restrict__ inc_o, int32_t* __restrict__ iters,
                     unsigned long long* __restrict__ work) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= Q) return;
-  int32_t* oq = out_qs + (size_t)lane * cap;
-  int32_t* ol = out_l + (size_t)lane * cap;
+  const int q = blockIdx.x * WARPS + threadIdx.x / WARP;
+  const int t = threadIdx.x % WARP;
+  if (q >= Q) return;              // a whole warp
+  int32_t* oq = out_qs + (size_t)q * cap;
+  int32_t* ol = out_l + (size_t)q * cap;
   Work wk;
   const LaneEnd e = run_lane(
-      T, seqs + (size_t)lane * Lp1, Lp1, lens[lane], (Lp1 + 63) / 64, cap,
-      max_rounds, budget != nullptr, budget ? budget[lane] : 0, overlap, oq,
-      ol, wk);
+      T, seqs + (size_t)q * Lp1, Lp1, lens[q], (Lp1 + 63) / 64, cap,
+      max_rounds, budget != nullptr, budget ? budget[q] : 0, overlap, oq,
+      ol, wk, t);
   const int n = min(e.count, cap);
-  n_sfs[lane] = n;
-  zero_tail(oq, ol, n, cap);
-  ovf_o[lane] = e.overflow;
-  inc_o[lane] = e.fb || e.active;
-  atomicMax(iters, e.rounds);
-  add_work(work, wk);
+  zero_tail(oq, ol, n, cap, t);
+  if (t == 0) {
+    n_sfs[q] = n;
+    ovf_o[q] = e.overflow;
+    inc_o[q] = e.fb || e.active;
+    atomicMax(iters, e.rounds);
+    add_work(work, wk);
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
 anchor_pool_kernel(Tables T, const uint8_t* __restrict__ syms,
                    const long long* __restrict__ offs,
                    const int32_t* __restrict__ lens, int M, int nwm, int cap,
-                   int overlap, int32_t* __restrict__ out_qs,
+                   int overlap, int warps, int32_t* __restrict__ out_qs,
                    int32_t* __restrict__ out_l, int32_t* __restrict__ n_sfs,
                    uint8_t* __restrict__ flags, int* __restrict__ next,
                    unsigned long long* __restrict__ work) {
+  const int t = threadIdx.x % WARP;
+  if (blockIdx.x * WARPS + threadIdx.x / WARP >= warps) return;
   Work wk;
   for (;;) {
-    const int i = atomicAdd(next, 1);
+    int i = 0;
+    if (t == 0) i = atomicAdd(next, 1);
+    i = __shfl_sync(FULL, i, 0);
     if (i >= M) break;
     const int len = lens[i];
     int32_t* oq = out_qs + (size_t)i * cap;
     int32_t* ol = out_l + (size_t)i * cap;
-    const LaneEnd e = run_lane(T, syms + offs[i], len, len, nwm, cap, INT_MAX,
-                               true, 6 * len + 64, overlap, oq, ol, wk);
+    const LaneEnd e = run_lane(T, syms + offs[i], len, len, nwm, cap,
+                               INT_MAX, true, 6 * len + 64, overlap, oq, ol,
+                               wk, t);
     const int n = min(e.count, cap);
-    n_sfs[i] = n;
-    zero_tail(oq, ol, n, cap);
-    flags[i] = (e.fb ? 1 : 0) | (e.overflow ? 2 : 0);
+    zero_tail(oq, ol, n, cap, t);
+    if (t == 0) {
+      n_sfs[i] = n;
+      flags[i] = (e.fb ? 1 : 0) | (e.overflow ? 2 : 0);
+    }
   }
-  add_work(work, wk);
+  if (t == 0) add_work(work, wk);
 }
 
 Tables make_tables(const void* small, long long X, const void* text, int n,
@@ -403,9 +474,10 @@ Tables make_tables(const void* small, long long X, const void* text, int n,
 
 }  // namespace
 
-// K3: one-shot batch. seqs [Q, Lp1] uint8, lens [Q] int32, budget [Q] int32
-// or null; outputs qs/length [Q, cap] int32, n_sfs [Q] int32, overflow and
-// incomplete [Q] bool, iters [] int32; work uint64 [4] or null (added to).
+// K3: one-shot batch, one warp per lane. seqs [Q, Lp1] uint8, lens [Q]
+// int32, budget [Q] int32 or null; outputs qs/length [Q, cap] int32, n_sfs
+// [Q] int32, overflow and incomplete [Q] bool, iters [] int32; work uint64
+// [4] or null (added to).
 extern "C" int svdss_anchor_batch(
     const void* small, long long X, const void* text, int n, int k, int j0,
     int cmax, int pos_base, const void* bm_bases, const void* seqs,
@@ -418,7 +490,7 @@ extern "C" int svdss_anchor_batch(
                                bm_bases);
   cudaMemsetAsync(iters, 0, sizeof(int32_t), s);
   if (Q > 0) {
-    anchor_batch_kernel<<<(Q + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+    anchor_batch_kernel<<<(Q + WARPS - 1) / WARPS, THREADS, 0, s>>>(
         T, static_cast<const uint8_t*>(seqs), static_cast<const int32_t*>(lens),
         static_cast<const int32_t*>(budget), Q, Lp1, cap, max_rounds, overlap,
         static_cast<int32_t*>(out_qs), static_cast<int32_t*>(out_l),
@@ -430,10 +502,11 @@ extern "C" int svdss_anchor_batch(
 }
 
 // K4: one pool chunk. M reads, read i at syms[offs[i] .. offs[i] + lens[i]),
-// searched as reads of a pool of padded width Lp1 by `lanes` threads that
-// each take the next read from an atomic counter (scratch: one int32);
-// outputs qs/length [M, cap] int32, n_sfs [M] int32, flags [M] uint8
-// (1 = host fallback, 2 = overflow); work uint64 [4] or null (added to).
+// searched as reads of a pool of padded width Lp1 by min(lanes, M) warps
+// (the reads in flight) that each take the next read from an atomic counter
+// (scratch: one int32); outputs qs/length [M, cap] int32, n_sfs [M] int32,
+// flags [M] uint8 (1 = host fallback, 2 = overflow); work uint64 [4] or
+// null (added to).
 extern "C" int svdss_anchor_pool(
     const void* small, long long X, const void* text, int n, int k, int j0,
     int cmax, int pos_base, const void* bm_bases, const void* syms,
@@ -444,15 +517,15 @@ extern "C" int svdss_anchor_pool(
   const Tables T = make_tables(small, X, text, n, k, j0, cmax, pos_base,
                                bm_bases);
   cudaMemsetAsync(counter, 0, sizeof(int32_t), s);
-  const int threads = min(lanes, M);
-  if (threads > 0) {
-    anchor_pool_kernel<<<(threads + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+  const int warps = min(lanes, M);
+  if (warps > 0) {
+    anchor_pool_kernel<<<(warps + WARPS - 1) / WARPS, THREADS, 0, s>>>(
         T, static_cast<const uint8_t*>(syms),
         static_cast<const long long*>(offs), static_cast<const int32_t*>(lens),
-        M, (Lp1 + 63) / 64, cap, overlap, static_cast<int32_t*>(out_qs),
-        static_cast<int32_t*>(out_l), static_cast<int32_t*>(n_sfs),
-        static_cast<uint8_t*>(flags), static_cast<int*>(counter),
-        static_cast<unsigned long long*>(work));
+        M, (Lp1 + 63) / 64, cap, overlap, warps,
+        static_cast<int32_t*>(out_qs), static_cast<int32_t*>(out_l),
+        static_cast<int32_t*>(n_sfs), static_cast<uint8_t*>(flags),
+        static_cast<int*>(counter), static_cast<unsigned long long*>(work));
   }
   return static_cast<int>(cudaGetLastError());
 }

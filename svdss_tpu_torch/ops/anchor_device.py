@@ -18,7 +18,7 @@ a key window, a k-mer above cmax, the round budget) come back
 the search stage redoes both on the host.
 
 On a CUDA tensor `batch_search_anchor` launches kernel K3
-(``csrc/anchor.cu``), one thread per lane, run to completion; on a CPU
+(``csrc/anchor.cu``), one warp per lane, run to completion; on a CPU
 tensor it runs `batch_search_anchor_plain`, the lockstep loop of the JAX
 package's ``ops/anchor_jax.py`` written out in tensor ops over all lanes.
 Both give that module's six result fields exactly, including which lanes

@@ -8,10 +8,11 @@ path (unresolvable k-mer window, k-mer above cmax, emission overflow, or
 its round budget of 6*len + 64 rounds spent).
 
 On the card one launch of kernel K4 (``csrc/anchor.cu``) searches a chunk
-of up to M reads: `lanes` threads each take the next read of the chunk
-from an atomic counter the moment they finish one, so a lane never idles
-behind a slower one. The host packs the next chunk into pinned memory and
-copies it on a side stream while the launch before it runs. The JAX
+of up to M reads: min(lanes, M) warps, one read each, take the next read
+of the chunk from an atomic counter the moment they finish one, so a lane
+never idles behind a slower one; `lanes` counts reads in flight, not
+threads. The host packs the next chunk into pinned memory and copies it
+on a side stream while the launch before it runs. The JAX
 package's pool (ops/anchor_pool.py there) keeps a device-side reservoir,
 result ring and push/fetch protocol to keep a lockstep TPU loop fed over a
 slow host link; one launch per chunk takes their place here.
