@@ -27,8 +27,11 @@ checkout at first use. Phases, each printing one JSON line:
            not), also against narrow K2; the wide anchor kernel, one shot
            and in parked-phase waves, on the wide table variants over a
            1 Mbp genome and a repeat-rich genome whose heavy anchors park
-           lanes (64 lanes against the host oracle); the wavefront DP
-           kernel at the call stage's buckets (CIGARs against the host DP);
+           lanes (64 lanes against the host oracle), and on the reads of
+           wide_edge_case, aimed at its key and compare steps; the
+           wavefront DP kernel at the call stage's buckets (CIGARs against
+           the host DP) and at DP_EDGE_CASES, widths around each of its
+           path limits;
            the jump-table kernel at k = 1, 6 and 8 over the FM check's
            genome, and the FM kernel's jump mode with that genome's 6-mer
            table on its read mix (with the overflow and step-budget
@@ -51,7 +54,9 @@ checkout at first use. Phases, each printing one JSON line:
            run's kernel launches are counted from 0;
   timing   each kernel and its plain version timed with CUDA events on the
            inputs the main path gave it (the anchor kernels with their time
-           a round of the slowest read; K2's wide mode on the force-wide
+           a round of the slowest read; the DP kernel with its time a
+           diagonal, also on the call stage's 2048 x 2048 and 4096 x 4096
+           chunks; K2's wide mode on the force-wide
            table of the run's index with the FM run's reads; the 12-mer
            jump table of the run's index, held whole against its plain
            version; K2's jump mode on the FM run's reads with that table,
@@ -525,6 +530,80 @@ def lane_edge_case(seed: int = 5):
     return g, 4, reads
 
 
+WIDE_EDGE_K = 10
+
+
+def wide_edge_case(seed: int = 6):
+    """(nt6 text, {name: build kwargs}, nt6 reads) aimed at the wide anchor
+    lane machine's key and compare steps (kernel K5: 512-symbol rows at
+    stride 256): a 24 kb genome (random, a 400 bp unit 12 times, random,
+    two 700 bp segments each copied twice with an SNV near one copy's end)
+    with k = 10 tables sorted, right-order-only, unsorted, and heavy (cmax
+    4, so the unit's k-mers park). The reads give compares of 0, 1 and 512
+    symbols and a mismatch at the 512th; leftward runs into the text start
+    (re-scanned at 512 or fewer available symbols, and not); pair-verify
+    rounds whose first candidate fails and second survives; rows across
+    the 256-symbol stride on both sides; key windows cut at a row's edge.
+    tests/test_torch_anchor_wide_lanes.py shows that each is reached."""
+    from svdss_tpu_torch.utils.seq import encode_nt6, revcomp_nt6
+    rng = np.random.default_rng(seed)
+    k = WIDE_EDGE_K
+
+    def rand(n):
+        return encode_nt6("".join("ACGT"[i] for i in rng.integers(0, 4, n)))
+
+    def snv(r, at):
+        r = r.copy()
+        r[at] = r[at] % 4 + 1
+        return r
+    unit = rand(400)
+    X, Y = rand(700), rand(700)
+    parts = [rand(9_216), np.tile(unit, 12), rand(3_000), X, rand(500),
+             snv(Y, 700 - k - 20), rand(500), snv(X, 700 - k - 20),
+             rand(500), Y, rand(2_000)]
+    text = np.concatenate(parts).astype(np.uint8)
+    reads = []
+    # compares of D = maxlen - k = 0 and 1 symbols, both strands
+    for m in (k, k + 1):
+        r = text[2_000:2_000 + m].copy()
+        reads += [r, revcomp_nt6(r)]
+    # exact reads from a multiple of 256 of length 1,024 + k: orientation
+    # B's leftward verify from the read's end starts at row column 511 of
+    # both rows and compares 512 symbols, twice; with an SNV at read
+    # position 512, the first compare's 512th symbol mismatches
+    for s in (1_024, 4_096):
+        r = text[s:s + 1_024 + k].copy()
+        reads += [r, snv(r, 512), revcomp_nt6(r)]
+    # leftward runs into the text start: reads that begin at or near it,
+    # behind 0-40 random symbols
+    for pre, s, n in ((0, 0, 700), (5, 0, 400), (40, 3, 600), (0, 100, 450),
+                      (0, 255, 800), (17, 511, 900), (0, 300, 300)):
+        reads.append(np.concatenate([rand(pre), text[s:s + n]]))
+    # pair verifies: the duplicated segments (the copy with the SNV first
+    # for X, second for Y), whole and in part, both strands
+    x0 = len(np.concatenate(parts[:3]))
+    y1 = x0 + 700 + 500
+    for s0 in (x0 + len(np.concatenate(parts[3:7])), x0, y1,
+               y1 + 700 + 500 + 700 + 500 + 700 + 500):
+        r = text[s0:s0 + 700].copy()
+        reads += [r, revcomp_nt6(r), r[200:].copy()]
+    # rows across the 256-symbol stride, both strands, with SNVs
+    for m in (255, 256, 257, 511, 512, 513, 767, 769):
+        r = snv(snv(text[6_000 + m:6_000 + 2 * m].copy(), m // 3),
+                2 * m // 3)
+        reads += [r, revcomp_nt6(r)]
+    # reads inside the repeated unit (heavy at cmax 4), both strands
+    reads += [text[9_300:9_900].copy(), revcomp_nt6(text[10_000:10_500])]
+    # a chimera of two distant pieces, both strands
+    r = np.concatenate([text[5_000:5_300], text[21_000:21_400]])
+    reads += [r, revcomp_nt6(r)]
+    builds = {"sorted": dict(k=k, cmax=32),
+              "right_only": dict(k=k, cmax=32, sort_buckets="right"),
+              "unsorted": dict(k=k, cmax=32, sort_buckets=False),
+              "heavy": dict(k=k, cmax=4)}
+    return text, builds, reads
+
+
 def lane_edge_budget(n: int) -> np.ndarray:
     """Per-lane round budgets of 3-60 for lane_edge_case's n reads: some
     lanes finish within theirs, the others are cut."""
@@ -803,6 +882,14 @@ def plain_wave_run(aw):
     return PlainWaves
 
 
+def snv_read(enc: np.ndarray, rng, rate: float = 0.001) -> np.ndarray:
+    """A copy of an nt6 piece with SNVs at `rate`."""
+    r = enc.copy()
+    at = rng.random(len(r)) < rate
+    r[at] = r[at] % 4 + 1
+    return r
+
+
 def check_anchor_wide(rng) -> dict:
     """K5 against its plain version in all six fields and its four work
     counts: one shot on the wide table variants over a 1 Mbp genome (fused
@@ -810,8 +897,12 @@ def check_anchor_wide(rng) -> dict:
     lperm, unsorted buckets; N reads, overlap 0, cap 2, a small round
     budget) and on a repeat-rich genome whose heavy anchors send lanes to
     the host; and in parked-phase waves (the same waves asked of the heavy
-    store, park_limit 16 and 1, right-order-only), which must park lanes.
-    64 complete lanes against the host oracle."""
+    store, park_limit 16 and 1, right-order-only), which must park lanes;
+    and on the reads of wide_edge_case, aimed at the warp's key and compare
+    steps, on its four table builds (one shot with the default, cap 2,
+    overlap 0 and 40 rounds; in waves on the heavy build); and two reads
+    of 240,000 symbols, too wide for the packed lanes. 64 complete lanes
+    against the host oracle."""
     from svdss_tpu_torch.index.fmd import build_index
     from svdss_tpu_torch.ops import anchor_wide_device as aw
     from svdss_tpu_torch.ops.anchor_wide import (build_anchor_index_wide,
@@ -819,7 +910,7 @@ def check_anchor_wide(rng) -> dict:
     from svdss_tpu_torch.ops.pingpong import pack_reads
     from svdss_tpu_torch.ops.pingpong_host import ping_pong_search
     from svdss_tpu_torch.pipeline.search import _bucket_len
-    from svdss_tpu_torch.utils.seq import encode_nt6
+    from svdss_tpu_torch.utils.seq import encode_nt6, revcomp_nt6
 
     g = "".join("ACGT"[i] for i in rng.integers(0, 4, 1_000_000))
     fwd = encode_nt6(g)
@@ -927,6 +1018,33 @@ def check_anchor_wide(rng) -> dict:
               and c["case"].startswith("repeats")]
     if not all(c["waves"] >= 1 and c["parked_lanes"] >= 1 for c in parked):
         raise RuntimeError("the repeat genome parked no lane")
+    # the edge reads of wide_edge_case on each of its builds, one shot
+    # (default, cap 2, overlap 0, 40 rounds), and in waves on its heavy
+    # build
+    etext, ebuilds, ereads = wide_edge_case()
+    eseqs, elens = pack_reads(ereads, device="cuda")
+    for bname, build in ebuilds.items():
+        etab = tables(etext.copy(), **build)
+        for cname, kw in (("", {}), (", cap 2", dict(cap=2)),
+                          (", overlap 0", dict(overlap=0)),
+                          (", 40 rounds", dict(max_rounds=40))):
+            one_shot(f"edge reads, {bname}{cname}", etab, eseqs, elens,
+                     **dict(dict(cap=128), **kw))
+        if bname == "heavy":
+            for limit in (16, 1):
+                waves(f"edge reads, heavy, park_limit {limit}", etab, eseqs,
+                      elens, ereads, park_limit=limit)
+    # reads of 240,000 symbols with SNVs, both strands: four packed reads
+    # of this width pass the shared memory a block may opt in to, so the
+    # launch takes the lanes that read the read's bytes
+    long = snv_read(fwd[100_000:340_000], rng)
+    lseqs, llens = pack_reads([long, revcomp_nt6(long)], device="cuda")
+    optin = getattr(torch.cuda.get_device_properties(0),
+                    "shared_memory_per_block_optin", 232_448)
+    if 4 * 4 * -(-lseqs.shape[1] // 16) <= optin:
+        raise RuntimeError("the long reads fit the packed lanes' memory")
+    one_shot("240 kb reads (byte-reading lanes)", sorted32, lseqs, llens,
+             cap=cap)
 
     # 64 complete lanes of the first case against the host oracle
     index = build_index({"g": g})
@@ -980,7 +1098,68 @@ def pack_pairs(pairs, lq: int, lt: int):
     return [torch.from_numpy(a).cuda() for a in (q, t, tgt_d, tgt_i)]
 
 
+# K1's edge shapes, (pairs, lq, lt, kind) by name: the width W = lq + 1
+# at 1, around a warp, around each width where the cells a thread change
+# (1,024, 2,048, 3,072) and at the register path's last width (5,120) and
+# the first past it; lt below lq and lt = 1; the target cell at the last
+# diagonal and at 0; all mismatches (NEG drifts through invalid cells);
+# one pair. tests/test_torch_wavefront_lanes.py runs them too.
+DP_EDGE_CASES = {
+    "W1": (3, 0, 5, "random"),
+    "W31": (2, 30, 9, "random"),
+    "W32": (2, 31, 12, "random"),
+    "W33": (2, 32, 4, "random"),
+    "W1023_lt1": (1, 1022, 1, "random"),
+    "W1024": (2, 1023, 3, "random"),
+    "W1025": (1, 1024, 2, "random"),
+    "W2048": (1, 2047, 2, "random"),
+    "W2049": (1, 2048, 1, "random"),
+    "W3072": (1, 3071, 1, "random"),
+    "W3073": (1, 3072, 1, "random"),
+    "W5120": (1, 5119, 1, "random"),
+    "W5121": (1, 5120, 1, "random"),
+    "lt_below_lq": (3, 90, 40, "random"),
+    "lt_above_lq": (3, 40, 90, "random"),
+    "tgt_last": (2, 70, 60, "tgt_last"),
+    "tgt_zero": (2, 70, 60, "tgt_zero"),
+    "all_mismatch": (2, 80, 50, "mismatch"),
+    "one_pair": (1, 200, 150, "random"),
+}
+
+
+def dp_edge_case(name: str):
+    """numpy (q, t, tgt_d, tgt_i, lq, lt) of one DP_EDGE_CASES entry, from a
+    seed of its own: pairs padded to (lq, lt) as the call stage pads them
+    (-3 / -4), pair 0 filling the bucket and the others ragged."""
+    B, lq, lt, kind = DP_EDGE_CASES[name]
+    rng = np.random.default_rng(sorted(DP_EDGE_CASES).index(name))
+    q = np.full((B, lq), -3, np.int32)
+    t = np.full((B, lt), -4, np.int32)
+    nq = rng.integers(0, lq + 1, B)
+    nt = rng.integers(1, lt + 1, B)
+    nq[0], nt[0] = lq, lt
+    for b in range(B):
+        tb = rng.integers(1, 5, nt[b])
+        qb = tb[:nq[b]].copy() if nq[b] <= nt[b] else np.concatenate(
+            [tb, rng.integers(1, 5, nq[b] - nt[b])])
+        snv = rng.random(len(qb)) < 0.05
+        qb[snv] = rng.integers(1, 5, int(snv.sum()))
+        if kind == "mismatch":
+            qb[:], tb[:] = 1, 2
+        q[b, :nq[b]], t[b, :nt[b]] = qb, tb
+    tgt_d = (nq + nt).astype(np.int32)
+    tgt_i = nq.astype(np.int32)
+    if kind == "tgt_last":
+        tgt_d[:], tgt_i[:] = lq + lt, lq
+    elif kind == "tgt_zero":
+        tgt_d[:] = 0
+    return q, t, tgt_d, tgt_i, lq, lt
+
+
 def check_wavefront(rng) -> dict:
+    """K1 against its plain version over the whole trace and the scores at
+    the call stage's buckets (CIGARs of a sample against the host DP) and
+    at DP_EDGE_CASES."""
     from svdss_tpu_torch.ops import align_dp
     from svdss_tpu_torch.ops.align import align_dual_gap
     from svdss_tpu_torch.pipeline.call import _CALL_PARAMS
@@ -988,8 +1167,8 @@ def check_wavefront(rng) -> dict:
     cases = []
     cigar_checked = cigar_bad = 0
     # the call stage's power-of-two buckets, each at its chunk size
-    # (pipeline/call.py pcall); 8192 x 512 runs the DP state out of
-    # shared memory (W > 6456 on an H100) through the global scratch
+    # (pipeline/call.py pcall); 8192 x 512 (W = 8,193) runs past the
+    # register path, with the DP state in global scratch
     for bq, bt in ((256, 256), (512, 512), (2048, 2048), (4096, 4096),
                    (8192, 512)):
         B = max(8, min(128, (256 << 20) // ((bq + bt) * (bq + 1))))
@@ -1003,8 +1182,7 @@ def check_wavefront(rng) -> dict:
         want = align_dp.wavefront_plain(*args, bq, bt, _CALL_PARAMS)
         err = max_abs_diff(got, want)
         cases.append({"case": f"{bq}x{bt}", "pairs": B, "max_abs_err": err,
-                      "global_scratch": align_dp.scratch_words(
-                          bq, args[0].device) > 0})
+                      "global_scratch": align_dp.scratch_words(bq) > 0})
         # CIGARs and scores against the host DP on a sample
         trace = got[0].cpu().numpy()
         score = got[1].cpu().numpy()
@@ -1015,6 +1193,18 @@ def check_wavefront(rng) -> dict:
             cigar_bad += mine != align_dual_gap(qa, ta, _CALL_PARAMS)
             cigar_checked += 1
         del got, want, trace
+    for name in sorted(DP_EDGE_CASES):
+        q, t, td, ti, lq, lt = dp_edge_case(name)
+        args = [torch.from_numpy(a).cuda() for a in (q, t, td, ti)]
+        before = align_dp.launches
+        got = align_dp.wavefront(*args, lq, lt, _CALL_PARAMS)
+        torch.cuda.synchronize()
+        if align_dp.launches != before + 1:
+            raise RuntimeError("wavefront did not launch the kernel")
+        want = align_dp.wavefront_plain(*args, lq, lt, _CALL_PARAMS)
+        cases.append({"case": name, "pairs": len(q),
+                      "max_abs_err": max_abs_diff(got, want),
+                      "global_scratch": align_dp.scratch_words(lq) > 0})
     if not any(c["global_scratch"] for c in cases):
         raise RuntimeError("no wavefront case ran the global-scratch path")
     mismatches = sum(c["max_abs_err"] > 0 for c in cases) + cigar_bad
@@ -1569,11 +1759,11 @@ def time_pingpong_jump(spy: Spy, table, k: int) -> dict:
             "vs_nojump_max_abs_err": vs_nojump}
 
 
-def time_wavefront(spy: Spy) -> dict:
+def time_wavefront_at(args, lq: int, lt: int, p) -> dict:
+    """K1 and its plain version on one input, with the µs a diagonal of
+    the kernel and how many SMs its blocks (one a pair) keep busy."""
     from svdss_tpu_torch.ops import align_dp
-    _, args, kw = spy.best
-    q, t, td, ti, lq, lt = args[:6]
-    p = args[6] if len(args) > 6 else kw.get("params")
+    q, t, td, ti = args
     B = q.shape[0]
     W, D = lq + 1, lq + lt + 1
     got = align_dp.wavefront(q, t, td, ti, lq, lt, p)
@@ -1584,9 +1774,32 @@ def time_wavefront(spy: Spy) -> dict:
     err = max_abs_diff(got, holder["r"])
     nbytes = 4 * B * (lq + lt) + 8 * B + B * D * W + 4 * B
     bms, by = bound(nbytes, B * (D - 1) * W * OPS_PER_DP_CELL)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return {"shape": f"B={B} lq={lq} lt={lt}", "ms": ms,
+            "us_per_diagonal": ms * 1e3 / (D - 1),
+            "sms_busy": f"{min(B, sms)} of {sms}",
+            "global_scratch": align_dp.scratch_words(lq) > 0,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": err}
+
+
+def time_wavefront(spy: Spy, rng) -> dict:
+    """K1 on the call stage's largest launch input, and on the call stage's
+    2048 x 2048 and 4096 x 4096 chunks (pipeline/call.py pcall: 32 and 8
+    pairs) of dp_pairs."""
+    from svdss_tpu_torch.pipeline.call import _CALL_PARAMS
+    _, args, kw = spy.best
+    q, t, td, ti, lq, lt = args[:6]
+    p = args[6] if len(args) > 6 else kw.get("params")
+    out = time_wavefront_at((q, t, td, ti), lq, lt, p)
+    for bq in (2048, 4096):
+        B = max(8, min(128, (256 << 20) // ((2 * bq) * (bq + 1))))
+        chunk = pack_pairs(dp_pairs(rng, B, bq, bq), bq, bq)
+        out[f"{bq}x{bq}"] = time_wavefront_at(chunk, bq, bq, _CALL_PARAMS)
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 out[f"{bq}x{bq}"]["max_abs_err"])
+        del chunk
+    return out
 
 
 def anchor_bound(index, lens, work, n_sfs, scalars: int) -> tuple:
@@ -1747,16 +1960,18 @@ def time_anchor_wide(spy: Spy) -> dict:
               + min(text, -(-syms // 4) + 4 * text_rows) + 8 * emitted + 4)
     bms, by = bound(nbytes, rounds_n * OPS_PER_ANCHOR_ROUND
                     + syms * OPS_PER_COMPARED_SYMBOL)
+    slowest = int(mine.iters) - r0
     return {"shape": f"Q={Q} ({n_live} live) L+1={Lp1} cap={cap} "
                      f"park={park} r0={r0}",
             "work": dict(zip(aw.WORK_FIELDS, work)),
-            "iters": int(mine.iters), "bound_bytes": nbytes,
+            "iters": int(mine.iters), "slowest_lane_rounds": slowest,
+            "us_per_round": ms * 1e3 / slowest, "bound_bytes": nbytes,
             "tables_GiB": (tables + text) / 2 ** 30, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": err}
 
 
-def phase_timing(run: dict) -> dict:
+def phase_timing(run: dict, seed: int) -> dict:
     from svdss_tpu_torch.index.fmd import FMDIndex
     from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
     spies = run["spies"]
@@ -1773,7 +1988,8 @@ def phase_timing(run: dict) -> dict:
            "anchor_batch": time_anchor_batch(spies["anchor_batch"]),
            "anchor_pool": time_anchor_pool(spies["anchor_pool"]),
            "anchor_wide": time_anchor_wide(spies["anchor_wide"]),
-           "wavefront_dp": time_wavefront(spies["wavefront_dp"])}
+           "wavefront_dp": time_wavefront(spies["wavefront_dp"],
+                                          np.random.default_rng(seed))}
     emit({"phase": "timing", **out})
     bad = [k for k, v in out.items() if v["max_abs_err"]]
     if bad:
@@ -1822,7 +2038,7 @@ def main() -> int:
         phase_env()
         errs = phase_kernels(args.seed)
         run = phase_run(wd, args)
-        timing = phase_timing(run)
+        timing = phase_timing(run, args.seed)
     finally:
         if not args.keep:
             shutil.rmtree(wd, ignore_errors=True)

@@ -1,5 +1,5 @@
 // Kernel K5 (anchor_wide): the wide anchor-verify SFS search over
-// forward-strand tables with uint32 coordinates, one thread per read lane,
+// forward-strand tables with uint32 coordinates, one warp per read lane,
 // in one-shot form (park = 0: a heavy k-mer sends the read to the host)
 // and as one wave of the parked-phase driver (park = 1: the lane parks and
 // the host answers the phase before the next wave).
@@ -22,22 +22,55 @@
 // symbols straight from the read (side 1 as its reverse complement) and
 // the 2-bit text.
 //
-// What bounds it on an H100: each round of a lane makes a short chain of
-// dependent reads at data-dependent addresses: the fused count word and
-// the aux entry (4^k entries each: 1 GiB at k = 14, far past the 50 MB
-// L2), then a poslist pair, then a run of text words. A lane is a serial
-// chain of such rounds, so the kernel is bound by memory latency, not by
-// bytes or operations; the bytes the work must move are those words and
-// the symbols compared.
+// What bounds it on an H100: each round of a lane makes a chain of
+// dependent reads at data-dependent addresses: the fused count word (with
+// the aux entry of the same key), sometimes an lperm word, then a poslist
+// pair, then the text words and the badrow word at the address that pair
+// gave; a SUB round reads one presence-bitmap word. The tables are far
+// past the 50 MB L2 (the aux table alone is 1 GiB at k = 14), so each link
+// is a DRAM round trip. A lane is a serial chain of such rounds, and a
+// launch takes its slowest lane's rounds times that chain: the kernel is
+// bound by memory latency, not by bytes or operations (the bytes the work
+// must move are those words and the symbols compared).
 //
-// What the design does about it: lane state lives in registers and a lane
-// runs to completion (or to a park) with no lockstep barrier, so no lane
-// waits for the batch's slowest one (the XLA loop ran every lane to the
-// batch's last round). The TPU's row gathers, funnel shift, word-level
-// mismatch scan and [Q, 8] emission staging are gone: a thread compares
-// symbols in a loop and writes emissions straight to [Q, cap]. Between
+// What the design does about it: it keeps each round's own work off that
+// chain. The 32 threads of a warp hold one lane's state as warp-uniform
+// registers, so every branch of the machine (mode, strand, orientation,
+// park, the block of 8 rounds) is taken by the whole warp. At the start of
+// a launch the warp packs its lane's read into 2-bit words in shared
+// memory (16 symbols a word); a read symbol window is then two
+// shared-memory words and a funnel shift, and one of side 1 (the reverse
+// complement) the same window of side 0 bit-reversed and complemented.
+// KEY takes the k-mer from one such window (its digits outside the row's
+// [0, 512) cut), and what depends on the key alone leaves at once: the
+// count word, the key's aux entry and, one level a thread, the bitmap
+// words that a SUB cascade from the key reads, so those SUB rounds take
+// their word from a shuffle instead of DRAM. A compare covers the row's
+// up to 512 distances in one step, 16 a thread (thread t takes distances
+// 16t .. 16t + 15): the text symbols come from two 2-bit words a thread
+// by a funnel shift (bit-reversed for a leftward compare), the read's
+// from the packed read, and one XOR gives the thread's mismatches; one
+// min-reduction over (distance, order bit) gives the first mismatch and
+// whether the text sorts below the read there. The leftward re-scan of a
+// run that reaches the text start is a second reduction over the same
+// words, and a pair-verify round runs two compares against the one read
+// word. Thread 0 writes the emissions, the lane state back and the round
+// and work atomics. Every round runs as one round of the lane machine,
+// so the round and work counts are the one-thread design's.
+//
+// Where the block's packed reads do not fit the shared memory a block may
+// opt in to on the card (reads past ~230k symbols), the launch takes the
+// same lanes reading the read's bytes instead; the launcher decides.
+//
+// What is left: one dependent DRAM read a round at least (the count word,
+// a bitmap word not fetched ahead, or a bucket's poslist pair), times the
+// slowest lane's rounds. Only more lanes in flight hide it, and a launch
+// has one warp a lane, all resident at the wide run's sizes. Between
 // waves the state stays in the device tensor `state` ([22, Q] int32) that
 // a launch reads at entry and writes back at exit.
+//
+// Launch shape: WARPS warps (lanes) a block; the dynamic shared memory is
+// WARPS packed reads of the launch's padded width.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,7 +79,13 @@ namespace {
 
 constexpr int SPAN2 = 512;       // symbols per span row
 constexpr int STAGE_EVERY = 8;   // rounds between overflow checks
-constexpr int THREADS = 64;
+constexpr int WARP = 32;
+constexpr int WARPS = 4;         // lanes (warps) a block
+constexpr int THREADS = WARPS * WARP;
+constexpr int PER_THREAD = SPAN2 / WARP;   // compared distances a thread
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned EVEN = 0x55555555u;     // the low bit of each symbol
+constexpr int NONE = 1 << 30;              // no mismatch (reductions)
 enum { KEY = 0, SUB = 1, POS = 2, VER = 3, KEYB = 4, PARKED = 5,
        RESOLVED = 6 };
 // rows of the state tensor (ops/anchor_wide_device.py STATE)
@@ -81,10 +120,15 @@ struct Work {
   unsigned long long rounds = 0, rows = 0, text = 0, syms = 0;
 };
 
-// the read: its bytes, its length, the packed side width 256*(nwm+1)
+// the read: its bytes, its length, the packed side width 256*(nwm+1),
+// and (packed lanes) its symbols as 2-bit words in shared memory, 16 a
+// word, symbol y in bits 2 (y % 16) of word y / 16; nw words hold the
+// read, 0 past them
 struct Read {
   const uint8_t* P;
   int len, w16;
+  const uint32_t* words;
+  int nw;
 };
 
 template <typename T>
@@ -95,18 +139,71 @@ __device__ __forceinline__ T clampv(T x, T lo, T hi) {
 // 2-bit value of read symbol y (nt6 - 1; 0 past the read)
 __device__ __forceinline__ int rsym(const Read& R, int y) {
   if (y < 0 || y >= R.len) return 0;
-  return clampv((int)R.P[y] - 1, 0, 3);
+  return clampv((int)__ldg(R.P + y) - 1, 0, 3);
 }
 
-// symbol at packed position y of one side: side 0 is the read, side 1 the
-// complement of the read zero-padded to w16 and reversed
-__device__ __forceinline__ int side_sym(const Read& R, int side, int y) {
-  return side == 0 ? rsym(R, y) : 3 - rsym(R, R.w16 - 1 - y);
+// The 16 symbols of a word in reverse order (slot i to slot 15 - i).
+__device__ __forceinline__ uint32_t rev16(uint32_t w) {
+  w = __brev(w);
+  return ((w >> 1) & EVEN) | ((w & EVEN) << 1);
+}
+
+// Read symbols y0 .. y0 + 15 in slots 0 .. 15 (0 outside the read): two
+// shared-memory words and a funnel shift on a packed lane, else 16 bytes.
+template <bool PACKED>
+__device__ __forceinline__ uint32_t read16(const Read& R, int y0) {
+  if constexpr (PACKED) {
+    const int wi = y0 >> 4;          // floor: y0 may be negative
+    const uint32_t w0 = (unsigned)wi < (unsigned)R.nw ? R.words[wi] : 0u;
+    const uint32_t w1 =
+        (unsigned)(wi + 1) < (unsigned)R.nw ? R.words[wi + 1] : 0u;
+    return __funnelshift_r(w0, w1, 2 * (y0 & 15));
+  } else {
+    uint32_t w = 0;
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i)
+      w |= (uint32_t)rsym(R, y0 + i) << (2 * i);
+    return w;
+  }
+}
+
+// Symbols y0 .. y0 + 15 of one side in slots 0 .. 15: side 0 is the read,
+// side 1 the complement of the read zero-padded to w16 and reversed, whose
+// symbol y is 3 - (read symbol w16 - 1 - y).
+template <bool PACKED>
+__device__ __forceinline__ uint32_t side16(const Read& R, int side, int y0) {
+  return side == 0 ? read16<PACKED>(R, y0)
+                   : rev16(read16<PACKED>(R, R.w16 - PER_THREAD - y0)) ^ FULL;
+}
+
+// The warp packs its lane's read into R.words (2-bit, 16 a word).
+__device__ __forceinline__ void pack_read(const Read& R, uint32_t* words,
+                                          int t) {
+  for (int w = t; w < R.nw; w += WARP) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i)
+      x |= (uint32_t)rsym(R, PER_THREAD * w + i) << (2 * i);
+    words[w] = x;
+  }
+  __syncwarp();
 }
 
 __device__ __forceinline__ uint32_t pair_at(const Tables& T, uint32_t slot) {
   const long long row = clampv((long long)(slot >> 1), 0LL, T.npp - 1);
   return __ldg(T.pospairs + 2 * (size_t)row + (slot & 1u));
+}
+
+// The presence-bitmap word that holds level j's bit of key (the word a
+// SUB round at subj = j reads).
+__device__ __forceinline__ uint32_t bm_word_at(const Tables& T, uint32_t key,
+                                               int j) {
+  const uint32_t key_j = key >> (2 * (T.k - clampv(j, 1, T.k)));
+  const uint32_t w_idx = key_j >> 5;
+  const long long bm_row = clampv(
+      (long long)T.bm_bases[clampv(j, 0, T.k - 1)] + (w_idx >> 1), 0LL,
+      T.nbms - 1);
+  return __ldg(T.bms + 2 * (size_t)bm_row + (w_idx & 1u));
 }
 
 __device__ __forceinline__ uint32_t rc_key(uint32_t y, int k) {
@@ -118,58 +215,76 @@ __device__ __forceinline__ uint32_t rc_key(uint32_t y, int k) {
   return y ^ ((1u << (2 * k)) - 1u);
 }
 
+// The low bit of each 2-bit symbol slot i in [lo, hi) of a thread's word.
+__device__ __forceinline__ uint32_t slots(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, PER_THREAD);
+  if (hi <= lo) return 0u;
+  const uint32_t upto = hi == PER_THREAD ? FULL : (1u << (2 * hi)) - 1u;
+  return upto & ~((1u << (2 * lo)) - 1u) & EVEN;
+}
+
+// Thread t's part of a compare against the read row (side, rowbase) from
+// column cmp_off, rightward or leftward: its read symbols at distances
+// 16t + i in slot i of `word`, and in `cols` the slots whose row column
+// lies in [0, 512) (the others take no part).
+struct ReadPart {
+  uint32_t word, cols;
+};
+
+template <bool PACKED>
+__device__ __forceinline__ ReadPart read_part(const Read& R, int side,
+                                              int rowbase, int cmp_off,
+                                              bool left, int t) {
+  const int c0 = left ? cmp_off - PER_THREAD * t : cmp_off + PER_THREAD * t;
+  ReadPart rp;
+  rp.cols = left ? slots(c0 - (SPAN2 - 1), c0 + 1) : slots(-c0, SPAN2 - c0);
+  rp.word = left ? rev16(side16<PACKED>(R, side,
+                                       rowbase + c0 - (PER_THREAD - 1)))
+                 : side16<PACKED>(R, side, rowbase + c0);
+  return rp;
+}
+
+// Thread t's text symbols at distances 16t + i from column col_t of text
+// row tr, rightward or leftward, in slot i; 0 outside the row's [0, 512).
+// Two row words hold them (one funnel shift); a leftward window is
+// bit-reversed into distance order.
+__device__ __forceinline__ uint32_t text_part(const Tables& T, long long tr,
+                                              int col_t, bool left, int t) {
+  const int lo = left ? col_t - PER_THREAD * t - (PER_THREAD - 1)
+                      : col_t + PER_THREAD * t;
+  const int wi = lo >> 4;          // floor: lo may be negative
+  const uint32_t* row = T.text2 + (size_t)tr * (SPAN2 / 16);
+  const uint32_t w0 = (wi >= 0 && wi < SPAN2 / 16) ? __ldg(row + wi) : 0u;
+  const uint32_t w1 =
+      (wi + 1 >= 0 && wi + 1 < SPAN2 / 16) ? __ldg(row + wi + 1) : 0u;
+  const uint32_t w = __funnelshift_r(w0, w1, 2 * (lo & 15));
+  return left ? rev16(w) : w;
+}
+
+// The first distance of a thread's slot mask `m` (NONE when empty), with
+// the order bit of the two words there: (16t + i) << 1 | (text < read).
+__device__ __forceinline__ int first_key(uint32_t m, uint32_t tw,
+                                         uint32_t qw, int t) {
+  if (m == 0u) return NONE;
+  const int i = (__ffs(m) - 1) >> 1;
+  const uint32_t ts = (tw >> (2 * i)) & 3u, qs = (qw >> (2 * i)) & 3u;
+  return ((PER_THREAD * t + i) << 1) | (ts < qs ? 1 : 0);
+}
+
 struct Cmp {
   int ext_after;
   bool survive, row_bad, lt;
 };
 
-// One verify compare of the read row (side, rowbase = 256*m_r) from column
-// cmp_off against occurrence occ at extension ext0, rightward or (left)
-// leftward; the anchor_wide_jax.py compare() :595 in scalar form.
-struct Scan {
-  const Tables& T;
-  const Read& R;
-  int side, rowbase, cmp_off, s;
-  long long tr;
-  bool left;
-  long long wcache_i = -1;
-  uint32_t wcache = 0;
-
-  __device__ int text_at(int c) {     // text row symbol c (0 outside)
-    if (c < 0 || c >= SPAN2) return 0;
-    const long long wi = tr * 32 + (c >> 4);
-    if (wi != wcache_i) {
-      wcache = __ldg(T.text2 + (size_t)wi);
-      wcache_i = wi;
-    }
-    return (wcache >> (2 * (c & 15))) & 3;
-  }
-
-  // first distance d in [d0, d1) where the row's symbols differ (the
-  // read row's columns outside [0, 512) take no part), else -1; the two
-  // symbols there in *t, *q
-  __device__ int first(int d0, int d1, int* t, int* q) {
-    for (int d = d0; d < d1; ++d) {
-      const int c = left ? cmp_off - d : cmp_off + d;
-      if (c < 0 || c >= SPAN2) {
-        if (left ? c < 0 : c >= SPAN2) break;
-        continue;
-      }
-      const int ts = text_at(c + s);
-      const int qs = side_sym(R, side, rowbase + c);
-      if (ts != qs) {
-        *t = ts;
-        *q = qs;
-        return d;
-      }
-    }
-    return -1;
-  }
-};
-
-__device__ Cmp compare(const Tables& T, const Read& R, int side, int rowbase,
-                       int cmp_off, bool left, uint32_t occ, int ext0,
-                       int vcap, Work& wk) {
+// One verify compare of the read row from column cmp_off against
+// occurrence occ at extension ext0, rightward or (left) leftward, by the
+// whole warp; the anchor_wide_jax.py compare() :595. rp is the thread's
+// read part of that row (read_part), the same for every compare of a
+// round.
+__device__ Cmp compare(const Tables& T, const ReadPart& rp, int cmp_off,
+                       bool left, uint32_t occ, int ext0, int vcap, Work& wk,
+                       int t) {
   const uint32_t avail_l = occ - (uint32_t)ext0;
   const uint32_t tstart = left ? avail_l - 1u
                                : occ + (uint32_t)T.k + (uint32_t)ext0;
@@ -185,10 +300,20 @@ __device__ Cmp compare(const Tables& T, const Read& R, int side, int rowbase,
   const int run_cap = vcap - ext0;
   int D = min(run_valid, run_cap);
   if (left) D = min(D, avail32);
-  Scan sc{T, R, side, rowbase, cmp_off, col_t - cmp_off, tr, left};
-  int tsym = 0, qsym = 0;
-  const int f = sc.first(0, D, &tsym, &qsym);
-  const bool found = f >= 0;
+  // a leftward run with no mismatch within D that may reach the text
+  // start scans on to its row's end (below)
+  const bool rescan = left && avail32 > 0 && avail32 <= SPAN2 && D < avail32;
+  uint32_t tw = 0, mism = 0;
+  if (D > 0 || rescan) {
+    tw = text_part(T, tr, col_t, left, t);
+    const uint32_t x = tw ^ rp.word;
+    mism = (x | (x >> 1)) & rp.cols;
+  }
+  const int d0 = PER_THREAD * t;
+  const int key = __reduce_min_sync(
+      FULL, first_key(mism & slots(-d0, D - d0), tw, rp.word, t));
+  const bool found = key != NONE;
+  const int f = key >> 1;
   ++wk.text;
   if (D > 0) wk.syms += found ? f + 1 : D;
   // a run that reaches the text start (leftward): past D the TPU's scan
@@ -199,10 +324,11 @@ __device__ Cmp compare(const Tables& T, const Read& R, int side, int rowbase,
   if (left && !found) {
     if (avail32 <= 0 || D >= avail32) {
       hit_start = true;
-    } else if (avail32 <= SPAN2) {
-      int t2, q2;
-      const int f2 = sc.first(max(D, 0), SPAN2 + 1, &t2, &q2);
-      hit_start = (f2 >= 0 ? f2 : SPAN2) >= avail32;
+    } else if (rescan) {
+      const int key2 = __reduce_min_sync(
+          FULL, first_key(mism & slots(max(D, 0) - d0, SPAN2 + 1 - d0), tw,
+                          rp.word, t));
+      hit_start = (key2 != NONE ? key2 >> 1 : SPAN2) >= avail32;
     }
   }
   // with no mismatch within D, D stands for the first: run and survive
@@ -213,17 +339,26 @@ __device__ Cmp compare(const Tables& T, const Read& R, int side, int rowbase,
   r.ext_after = ext0 + max(run, 0);
   r.survive = first >= run_valid && r.ext_after < vcap && !hit_start;
   r.row_bad = (badw >> (tr & 31)) & 1u;
-  r.lt = hit_start || (found && tsym < qsym);
+  r.lt = hit_start || (found && (key & 1));
   return r;
 }
 
 // One lane from round r0 until it ends, parks (park) or reaches
-// max_rounds, in blocks of 8 rounds with the overflow check after each.
-// Returns the round at which it stopped.
+// max_rounds, in blocks of 8 rounds with the overflow check after each,
+// run by the whole warp (t is the thread's index in it). Every value but
+// a thread's symbols and its part of a compare is the same in all 32
+// threads. Thread 0 writes the emissions. Returns the round at which the
+// lane stopped.
+template <bool PACKED>
 __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
                         int max_rounds, int overlap, bool park, int r0,
-                        Lane& L, int32_t* oq, int32_t* ol, Work& wk) {
+                        Lane& L, int32_t* oq, int32_t* ol, Work& wk, int t) {
   const int k = T.k, j0 = T.j0;
+  const int n_lv = k - 1 - j0;     // bitmap levels j0 + 1 .. k - 1
+  // thread i < n_lv: the bitmap word of level j0 + 1 + i of L.key, when
+  // bm_ok (fetched by the KEY round that set L.key)
+  uint32_t bm_pre = 0;
+  bool bm_ok = false;
   int r = r0;
   auto runnable = [&]() {
     return L.active && !L.fb && !(park && L.mode == PARKED);
@@ -260,24 +395,42 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
       const int rowbase = m_r << 8;
       const int col_a = rstart - rowbase;
 
-      // KEY: the k-mer at col_a (digit i = symbol i) and its RC key
+      // a compare reads the row from cmp_off, leftward on orientation B:
+      // this thread's read symbols of it, loaded ahead of the table reads,
+      // which they do not need
+      const bool on_b_eff = on_b || is_keyb;
+      const int cmp_off = is_key ? col_a + k : col_a;
+      ReadPart rp{0u, 0u};
+      if (is_key || is_keyb || is_pos || is_ver)
+        rp = read_part<PACKED>(R, side, rowbase, cmp_off, on_b_eff, t);
+
+      // KEY: the k-mer at col_a and its RC key. Digit i is the symbol at
+      // row column col_a + i (0 outside [0, 512)): the 16 symbols from
+      // col_a, those columns kept, reversed so that digit 0 is the top
       uint32_t key = 0;
       if (is_key) {
-        for (int i = 0; i < k; ++i) {
-          const int c = col_a + i;
-          const int sym =
-              (c >= 0 && c < SPAN2) ? side_sym(R, side, rowbase + c) : 0;
-          key |= (uint32_t)sym << (2 * (k - 1 - i));
-        }
+        const uint32_t keep = slots(-col_a, SPAN2 - col_a) & slots(0, k);
+        key = rev16(side16<PACKED>(R, side, rowbase + col_a) &
+                    (keep | keep << 1)) >> (2 * (PER_THREAD - k));
       }
       const uint32_t keyb_new = rc_key(key, k);
       const bool floor_case = is_key && maxlen <= j0;
       const bool use_meta = is_key && maxlen >= k;
       const bool to_sub_short = is_key && maxlen > j0 && maxlen < k;
 
-      // the fused count word: forward count and two-strand total
+      // what depends on the key alone leaves at once: the fused count word
+      // (forward count and two-strand total), the key's aux entry (read
+      // when the k-mer starts a bucket) and, one level a thread, the
+      // bitmap words of a SUB cascade from the key
+      if (is_key) {
+        bm_ok = use_meta || to_sub_short;
+        if (bm_ok && t < n_lv) bm_pre = bm_word_at(T, key, j0 + 1 + t);
+      }
       int cnt_a = 0, ctot = 0;
+      uint32_t aux_key = 0;
       if (use_meta) {
+        aux_key = __ldg(T.aux + clampv((long long)(int)key, 0LL,
+                                       T.n_aux - 1));
         ++wk.rows;
         if (T.ct16) {
           const uint32_t w = __ldg(T.ct + (key >> 1));
@@ -304,8 +457,9 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
       uint32_t aux_g = 0;
       if (start_a || is_keyb) {
         ++wk.rows;
-        aux_g = __ldg(T.aux + clampv((long long)(is_key ? (int)key : L.keyb),
-                                     0LL, T.n_aux - 1));
+        aux_g = is_key ? aux_key
+                       : __ldg(T.aux + clampv((long long)L.keyb, 0LL,
+                                              T.n_aux - 1));
       }
       const bool chain_multi = a_multi || b_multi;
 
@@ -367,9 +521,7 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
       const int cnt_eff = start_a ? cnt_a : is_keyb ? L.cntb : L.cnt;
       const int best_eff = is_key ? 0 : L.best;
       const uint32_t aux_eff = (is_key || is_keyb) ? aux_g : L.aux;
-      const bool on_b_eff = on_b || is_keyb;
       const bool left_cmp = ver_like && on_b_eff;
-      const int cmp_off = is_key ? col_a + k : col_a;
 
       // pair verify: screening rounds (ext == 0) of a linear scan verify
       // two candidates against the same read span
@@ -388,11 +540,10 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
       const int vcap = maxlen - k;
       Cmp c1{0, false, false, false}, c2{0, false, false, false};
       if (ver_like)
-        c1 = compare(T, R, side, rowbase, cmp_off, left_cmp, occ_eff,
-                     ext_eff, vcap, wk);
+        c1 = compare(T, rp, cmp_off, left_cmp, occ_eff, ext_eff, vcap, wk,
+                     t);
       if (pair_ok)
-        c2 = compare(T, R, side, rowbase, cmp_off, left_cmp, occ_2nd, 0,
-                     vcap, wk);
+        c2 = compare(T, rp, cmp_off, left_cmp, occ_2nd, 0, vcap, wk, t);
       if (c1.row_bad || c2.row_bad) fb_new = true;
 
       int best_new = (ver_like && !c1.survive) ? max(best_eff, c1.ext_after)
@@ -461,12 +612,11 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
         ++wk.rows;
         const uint32_t key_j =
             (uint32_t)L.key >> (2 * (k - clampv(L.subj, 1, k)));
-        const uint32_t w_idx = key_j >> 5;
-        const long long bm_row = clampv(
-            (long long)T.bm_bases[clampv(L.subj, 0, k - 1)] + (w_idx >> 1),
-            0LL, T.nbms - 1);
-        const uint32_t bm_word = __ldg(T.bms + 2 * (size_t)bm_row
-                                       + (w_idx & 1u));
+        const int lv = L.subj - j0 - 1;
+        const uint32_t bm_word =
+            bm_ok && lv >= 0 && lv < n_lv
+                ? __shfl_sync(FULL, bm_pre, lv)
+                : bm_word_at(T, (uint32_t)L.key, L.subj);
         sub_present = (bm_word >> (key_j & 31u)) & 1u;
         if (!sub_present) {
           subj_next = L.subj - 1;
@@ -489,7 +639,7 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
       const bool to_fwd = b_res && !prefix_match;
       const bool emit = resolve && !is_b;
       if (emit) {
-        if (L.nsfs < cap) {
+        if (L.nsfs < cap && t == 0) {
           oq[L.nsfs] = L.anc;
           ol[L.nsfs] = m_res + 1;
         }
@@ -540,6 +690,12 @@ __device__ int run_lane(const Tables& T, const Read& R, int nwm, int cap,
   return r;
 }
 
+// Words of shared memory a packed lane of padded width Lp1 takes.
+__host__ __device__ __forceinline__ int lane_words(int Lp1) {
+  return (Lp1 + PER_THREAD - 1) / PER_THREAD;
+}
+
+template <bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 anchor_wide_kernel(Tables T, const uint8_t* __restrict__ seqs,
                    const int32_t* __restrict__ lens, int Q, int Lp1, int cap,
@@ -547,8 +703,9 @@ anchor_wide_kernel(Tables T, const uint8_t* __restrict__ seqs,
                    int32_t* __restrict__ state, int32_t* __restrict__ out_qs,
                    int32_t* __restrict__ out_l, int32_t* __restrict__ rounds,
                    unsigned long long* __restrict__ work) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= Q) return;
+  const int lane = blockIdx.x * WARPS + threadIdx.x / WARP;
+  const int t = threadIdx.x % WARP;
+  if (lane >= Q) return;             // a whole warp
   int32_t* st = state + lane;
   auto get = [&](int f) { return st[(size_t)f * Q]; };
   Lane L;
@@ -575,11 +732,21 @@ anchor_wide_kernel(Tables T, const uint8_t* __restrict__ seqs,
   L.best = get(S_BEST);
   L.nsfs = get(S_NSFS);
   const int nwm = 2 * ((Lp1 + 255) / 256 + 1) - 1;
-  const Read R{seqs + (size_t)lane * Lp1, lens[lane], 256 * (nwm + 1)};
+  extern __shared__ uint32_t lane_smem[];
+  uint32_t* words = lane_smem + (size_t)(threadIdx.x / WARP) * lane_words(Lp1);
+  const int len = lens[lane];
+  const Read R{seqs + (size_t)lane * Lp1, len, 256 * (nwm + 1), words,
+               (len + PER_THREAD - 1) / PER_THREAD};
+  if (PACKED && L.active && !L.fb && !(park && L.mode == PARKED) &&
+      r0 < max_rounds)
+    pack_read(R, words, t);
   Work wk;
   const int r_end =
-      run_lane(T, R, nwm, cap, max_rounds, overlap, park != 0, r0, L,
-               out_qs + (size_t)lane * cap, out_l + (size_t)lane * cap, wk);
+      run_lane<PACKED>(T, R, nwm, cap, max_rounds, overlap, park != 0, r0, L,
+               out_qs + (size_t)lane * cap, out_l + (size_t)lane * cap, wk,
+               t);
+  __syncwarp();                      // every thread has read the state
+  if (t != 0) return;
   auto put = [&](int f, int v) { st[(size_t)f * Q] = v; };
   put(S_ACTIVE, L.active);
   put(S_FB, L.fb);
@@ -653,14 +820,39 @@ extern "C" int svdss_anchor_wide(const void* tables, const void* dims,
   T.ronly = d[12] != 0;
   T.ct16 = d[13] != 0;
   for (int j = 0; j < 16; ++j) T.bm_bases[j] = (int)d[14 + j];
-  if (Q > 0) {
-    anchor_wide_kernel<<<(Q + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-        T, static_cast<const uint8_t*>(seqs),
-        static_cast<const int32_t*>(lens), Q, Lp1, cap, max_rounds, overlap,
-        park, r0, static_cast<int32_t*>(state),
-        static_cast<int32_t*>(out_qs), static_cast<int32_t*>(out_l),
-        static_cast<int32_t*>(rounds),
-        static_cast<unsigned long long*>(work));
+  if (Q <= 0) return static_cast<int>(cudaGetLastError());
+  // the launch: packed lanes where the block's reads fit the shared
+  // memory a block may opt in to on this card, else lanes that read the
+  // read's bytes
+  const size_t smem = (size_t)WARPS * lane_words(Lp1) * sizeof(uint32_t);
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool packed = smem <= (size_t)limit;
+  if (packed && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(anchor_wide_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const auto* sq = static_cast<const uint8_t*>(seqs);
+  const auto* ln = static_cast<const int32_t*>(lens);
+  auto* stp = static_cast<int32_t*>(state);
+  auto* oq = static_cast<int32_t*>(out_qs);
+  auto* ol = static_cast<int32_t*>(out_l);
+  auto* rd = static_cast<int32_t*>(rounds);
+  auto* wk = static_cast<unsigned long long*>(work);
+  const int blocks = (Q + WARPS - 1) / WARPS;
+  if (packed)
+    anchor_wide_kernel<true><<<blocks, THREADS, smem, s>>>(
+        T, sq, ln, Q, Lp1, cap, max_rounds, overlap, park, r0, stp, oq, ol,
+        rd, wk);
+  else
+    anchor_wide_kernel<false><<<blocks, THREADS, 0, s>>>(
+        T, sq, ln, Q, Lp1, cap, max_rounds, overlap, park, r0, stp, oq, ol,
+        rd, wk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,15 +59,11 @@ def wavefront(q: torch.Tensor, t: torch.Tensor, tgt_d: torch.Tensor,
     return wavefront_plain(q, t, tgt_d, tgt_i, lq, lt, params)
 
 
-def scratch_words(lq: int, device: torch.device) -> int:
+def scratch_words(lq: int) -> int:
     """int32 words of global DP scratch kernel K1 needs per pair at query
-    length lq on `device` (a CUDA device); 0 when its state fits in shared
-    memory there. The kernel library decides, from the card's limit."""
-    with torch.cuda.device(device):
-        words = load_kernels()["wavefront"].svdss_wavefront_scratch_words(lq)
-    if words < 0:
-        check_launch(-words, "wavefront_dp shared-memory query")
-    return words
+    length lq; 0 when the kernel's register path takes the width. The
+    kernel library decides."""
+    return load_kernels()["wavefront"].svdss_wavefront_scratch_words(lq)
 
 
 def _launch(q, t, tgt_d, tgt_i, lq, lt, p: AlignParams):
@@ -78,7 +74,7 @@ def _launch(q, t, tgt_d, tgt_i, lq, lt, p: AlignParams):
     lib = load_kernels()["wavefront"]
     trace = torch.empty((B, D, W), dtype=torch.uint8, device=dev)
     score = torch.empty(B, dtype=torch.int32, device=dev)
-    words = scratch_words(lq, dev)
+    words = scratch_words(lq)
     scratch = (torch.empty((B, words), dtype=torch.int32, device=dev)
                if words else None)
     rc = lib.svdss_wavefront_dp(
