@@ -36,7 +36,12 @@ checkout at first use. Phases, each printing one JSON line:
            genome, and the FM kernel's jump mode with that genome's 6-mer
            table on its read mix (with the overflow and step-budget
            cases), whose complete lanes equal the search without jumps in
-           no more steps;
+           no more steps; the FM kernel on the reads of
+           pingpong_edge_case (spans ending at 256 symbols, pending and
+           sentinel steps, safe_b's edge) narrow, wide at limb widths 12
+           (low limbs carry) and 31, and in jump mode at k = 4 and 6, and
+           the jump-table kernel on that genome at k = 1, 4, 6 and 8
+           (mostly absent 8-mers);
   run      the main path, ``cli run`` with the default engine choice, on a
            seed-pinned 40 Mbp diploid sample (the sample of
            tools/chr_scale.py, simulated with the port's own simulator):
@@ -60,8 +65,12 @@ checkout at first use. Phases, each printing one JSON line:
            table of the run's index with the FM run's reads; the 12-mer
            jump table of the run's index, held whole against its plain
            version; K2's jump mode on the FM run's reads with that table,
-           with its rank steps beside those without jumps), and the least
-           time the card could take for the same work.
+           with its rank steps beside those without jumps; K2's µs a step
+           in all three modes, over the slowest lane's steps; K6's
+           instructions a parent, its source note's SASS counts over the
+           run's parents of each kind, and their time at Hopper's
+           integer issue rates), and the least time the card could take
+           for the same work.
 
 The env line carries each kernel's registers and spills (nvcc's
 ``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
@@ -114,6 +123,16 @@ OPS_PER_COMPARED_SYMBOL = 4
 # row's tests
 OPS_PER_JUMP_PARENT = 2 * 32 * 5 * 6 + 4 * 8
 OPS_PER_KEY_SYMBOL = 4
+# the instructions kernel K6 issues for a parent of each kind, as its
+# source note counts them (the SASS of jump_level_kernel for sm_90a, path
+# by path): absent (sz 0), both endpoints in one fused row, in two rows;
+# and the popcounts among them
+JUMP_PARENT_INSNS = {"absent": 44, "one_row": 341, "two_rows": 456}
+JUMP_PARENT_POPC = {"absent": 0, "one_row": 40, "two_rows": 40}
+# Hopper's 32-bit integer issue (64 lanes an SM a clock, 16 for popcount)
+# at the H100 SXM's 1.98 GHz boost clock over its 132 SMs
+INT_LANES_PER_S = 132 * 64 * 1.98e9
+POPC_LANES_PER_S = 132 * 16 * 1.98e9
 # the sixth run's k, and the k of the kernels phase's jump checks
 RUN_JUMP_K = 12
 CHECK_JUMP_K = 6
@@ -282,6 +301,72 @@ def long_reads(g: str, rng, n: int) -> list:
             read = revcomp_str(read)
         reads.append(read)
     return reads
+
+
+PP_EDGE_LIMB = 12   # the wide edge table's low-limb width
+
+
+def pingpong_edge_case(seed: int = 9):
+    """(genome, nt6 reads) aimed at the FM lane machine's edges (kernel K2,
+    all three modes): a 26 kb genome (random; a 40 bp unit 150 times and a
+    30 bp unit 220 times, whose substrings keep intervals of ~150 and ~220
+    over many steps; an N run) and reads that give rank steps whose
+    interval ends exactly at the 256-symbol span and one past it (pending
+    steps), forward extensions into a $ inside the read (the sentinel
+    step: the rest of the read is the start of a strand, so $ + rest is in
+    the index), SFS-dense reads that overflow a small cap, and reads of
+    300-1,100 symbols whose restarts meet the jump test safe_b's edge from
+    both sides. With the limb-12 wide table the ranks' low limbs carry
+    past 2^12. tests/test_torch_pingpong_lanes.py shows that
+    each of these is reached."""
+    from svdss_tpu_torch.utils.seq import encode_nt6, revcomp_nt6
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    def snv(r, at):
+        r = r.copy()
+        r[at] = r[at] % 4 + 1
+        return r
+    ua, ub = rand(40), rand(30)
+    g = (rand(8_000) + ua * 150 + rand(3_000) + ub * 220 + "N" * 50
+         + rand(2_400))
+    enc = encode_nt6(g)
+    a0, b0 = 8_000, 8_000 + 6_000 + 3_000
+    reads = []
+    # reads inside the tandem repeats, both strands, some with an SNV
+    for s0, n in ((a0 + 100, 400), (a0 + 2_017, 900), (b0 + 55, 500),
+                  (b0 + 3_001, 1_100)):
+        r = enc[s0:s0 + n].copy()
+        reads += [r, revcomp_nt6(r), snv(r, n // 3)]
+    # across the repeats' borders, with SNVs
+    for s0 in (a0 - 150, a0 + 5_900, b0 - 200, b0 + 6_450):
+        r = snv(enc[s0:s0 + 400].copy(), 201)
+        reads += [r, revcomp_nt6(r)]
+    # a $ inside the read: X + $ + the start of a strand (the reverse
+    # strand starts with revcomp of the genome's end)
+    tail = revcomp_nt6(enc[-300:])
+    for x in range(4):
+        reads.append(np.concatenate([encode_nt6(rand(60 + 7 * x)),
+                                     np.zeros(1, np.uint8), tail[:200]]))
+    reads.append(np.concatenate([encode_nt6(rand(80)), np.zeros(1, np.uint8),
+                                 encode_nt6(g[:150])]))
+    # SFS-dense random reads and genome reads with SNVs every ~30 bp, of
+    # 300-1,100 symbols
+    for n in (300, 517, 700, 901, 1_100):
+        reads.append(encode_nt6(rand(n)))
+        s0 = int(rng.integers(0, 8_000 - n))
+        r = enc[s0:s0 + n].copy()
+        for at in range(5, n, 31):
+            r = snv(r, at)
+        reads.append(r)
+    # genome reads with one SNV at 0-60 symbols from their start, so the
+    # last phases sit near the read's start
+    for at in range(0, 61, 4):
+        s0 = int(rng.integers(0, 8_000 - 350))
+        reads.append(snv(enc[s0:s0 + 350].copy(), at))
+    return g, reads
 
 
 def check_pingpong(rng) -> dict:
@@ -836,6 +921,76 @@ def check_pingpong_wide(rng) -> dict:
             "mismatches": sum(e > 0 for e in errs), "max_abs_err": max(errs)}
 
 
+def check_pingpong_edges() -> list:
+    """K2 on the reads of pingpong_edge_case (spans ending at 256 symbols
+    and one past, pending steps, sentinel steps, safe_b's edge) against its
+    plain version in all six fields, at cap 64 (some lanes overflow) and
+    under a 200-step budget: narrow, wide at limb widths 12 (low limbs
+    carry past 2^12) and 31, and jump mode at k = 4 and 6 with tables
+    built by K6 on the card. K6 itself at k = 1, 4, 6 and 8 on that genome,
+    whose 8-mers are mostly absent, against its plain version."""
+    from svdss_tpu_torch.index.fmd import build_index
+    from svdss_tpu_torch.ops import fmd, pingpong
+    from svdss_tpu_torch.ops.fmd import DeviceFMDIndex
+    g, reads = pingpong_edge_case()
+    index = build_index({"e": g})
+    narrow = DeviceFMDIndex.from_host(index, "cuda")
+    seqs, lens = pingpong.pack_reads(reads, device="cuda")
+    Lp1 = seqs.shape[1]
+    k6 = []
+    tables = {}
+    for k in (1, 4, CHECK_JUMP_K, 8):
+        before = fmd.launches
+        got = fmd.build_jump_table(narrow, k)
+        torch.cuda.synchronize()
+        if fmd.launches != before + k - 1:
+            raise RuntimeError(f"build_jump_table({k}) launched K6 "
+                               f"{fmd.launches - before} times, not {k - 1}")
+        tables[k] = got
+        k6.append({"case": f"edge genome k={k}", "rows": 4 ** k,
+                   "present": int((got[:, 2] > 0).sum()),
+                   "max_abs_err": max_abs_diff(
+                       [got], [fmd.build_jump_table_plain(narrow, k)])})
+    if k6[-1]["present"] * 2 > k6[-1]["rows"]:
+        raise RuntimeError("the edge genome's 8-mers are mostly present")
+    modes = {"narrow": (narrow, {}),
+             "wide limb 12": (DeviceFMDIndex.from_host(
+                 index, "cuda", force_wide=True, limb_bits=PP_EDGE_LIMB), {}),
+             "wide limb 31": (DeviceFMDIndex.from_host(
+                 index, "cuda", force_wide=True), {}),
+             "jump k=4": (narrow, dict(jump_table=tables[4], jump_k=4)),
+             f"jump k={CHECK_JUMP_K}": (narrow, dict(
+                 jump_table=tables[CHECK_JUMP_K], jump_k=CHECK_JUMP_K))}
+    cases = []
+    for name, (tab, jkw) in modes.items():
+        for budget in (0, 200):
+            before = pingpong.launches
+            got = pingpong.batch_search(tab, seqs, lens, cap=64,
+                                        max_iters=budget, **jkw)
+            torch.cuda.synchronize()
+            if pingpong.launches != before + 1:
+                raise RuntimeError(f"batch_search did not launch K2 ({name})")
+            max_iters = budget or 8 * (Lp1 - 1) + 64
+            want = pingpong.batch_search_plain(
+                tab, seqs, lens, 64, -(-max_iters // pingpong.K_INNER),
+                jump_table=jkw.get("jump_table"), jump_k=jkw.get("jump_k", 0))
+            label = f", max_iters={budget}" if budget else ""
+            cases.append({"case": f"edge reads, {name}{label}",
+                          "lanes": len(reads), "L": Lp1 - 1, "cap": 64,
+                          "max_abs_err": max_abs_diff(
+                              [getattr(got, f) for f in PP_FIELDS],
+                              [getattr(want, f) for f in PP_FIELDS]),
+                          "overflow": int(got.overflow.sum()),
+                          "incomplete": int(got.incomplete.sum()),
+                          "iters": int(got.iters)})
+    return [{"name": "pingpong_fm_edges", "cases": cases,
+             "mismatches": sum(c["max_abs_err"] > 0 for c in cases),
+             "max_abs_err": max(c["max_abs_err"] for c in cases)},
+            {"name": "jump_level_edges", "cases": k6,
+             "mismatches": sum(c["max_abs_err"] > 0 for c in k6),
+             "max_abs_err": max(c["max_abs_err"] for c in k6)}]
+
+
 def repeat_genome(rng, copies: int, unit_len: int = 600,
                   spacer: int = 800) -> str:
     """5%-diverged copies of one unit between random spacers, after 3 kb of
@@ -1218,8 +1373,8 @@ def phase_kernels(seed: int) -> dict:
     t0 = time.time()
     rng = np.random.default_rng(seed)
     checks = [*check_pingpong(rng), check_pingpong_wide(rng),
-              *check_anchor(rng), check_anchor_wide(rng),
-              check_wavefront(rng)]
+              *check_pingpong_edges(), *check_anchor(rng),
+              check_anchor_wide(rng), check_wavefront(rng)]
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "tolerance": 0, "checks": checks})
     bad = [c["name"] for c in checks if c["mismatches"]]
@@ -1230,7 +1385,10 @@ def phase_kernels(seed: int) -> dict:
     # K2's two instantiations and its jump mode are one kernel's
     errs["pingpong_fm"] = max(errs["pingpong_fm"],
                               errs.pop("pingpong_fm_wide"),
-                              errs.pop("pingpong_fm_jump"))
+                              errs.pop("pingpong_fm_jump"),
+                              errs.pop("pingpong_fm_edges"))
+    errs["jump_level"] = max(errs["jump_level"],
+                             errs.pop("jump_level_edges"))
     return errs
 
 
@@ -1660,9 +1818,11 @@ def time_pingpong(spy: Spy, index=None) -> dict:
     nbytes = (read_bytes + 4 * len(llens) + min(table, steps * 192)
               + 8 * int(live.n_sfs.sum()) + 6 * len(llens) + 4)
     bms, by = bound(nbytes, steps * OPS_PER_RANK_STEP)
+    iters = int(got.iters)
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap}",
             "wide": index.wide, "limb_bits": index.limb_bits,
-            "rank_steps": steps,
+            "rank_steps": steps, "iters": iters,
+            "us_per_step": ms * 1e3 / iters,
             "read_bytes": read_bytes, "bound_bytes": nbytes,
             "table_MiB": table / 2 ** 20, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "max_abs_err": err, **vs_narrow}
@@ -1673,10 +1833,12 @@ def time_jump_level(index, k: int) -> dict:
     timed together), held whole against its plain version. The bound:
     the fused rows the levels read (each once, counted from this index's
     intervals), C, and the table written; the operations of every
-    parent."""
+    parent. The time is the mean of 50 builds (~20 ms of work), a longer
+    window than the other kernels' 5 launches, whose ~2 ms moved by a
+    quarter between calls."""
     from svdss_tpu_torch.ops import fmd
     got = fmd.build_jump_table(index, k)
-    ms = cuda_ms(lambda: fmd.build_jump_table(index, k), 5)
+    ms = cuda_ms(lambda: fmd.build_jump_table(index, k), 50)
     holder = {}
     plain_ms = once_ms(lambda: holder.setdefault(
         "r", fmd.build_jump_table_plain(index, k)))
@@ -1686,21 +1848,34 @@ def time_jump_level(index, k: int) -> dict:
     nblk = index.fused.shape[0]
     touched = torch.zeros(nblk, dtype=torch.bool, device=index.device)
     rows, parents = fmd.level_one(index), 0
+    kinds = dict.fromkeys(JUMP_PARENT_INSNS, 0)
     for _ in range(1, k):
         live = rows[:, 2] > 0
         lo = torch.where(live, rows[:, 0], 0)
+        hi = lo + torch.where(live, rows[:, 2], 0)
         touched[(lo >> 7).long()] = True
-        touched[((lo + torch.where(live, rows[:, 2], 0)) >> 7).long()] = True
+        touched[(hi >> 7).long()] = True
+        one = live & ((lo >> 7) == (hi >> 7))
+        kinds["absent"] += int((~live).sum())
+        kinds["one_row"] += int(one.sum())
+        kinds["two_rows"] += int((live & ~one).sum())
         parents += rows.shape[0]
         rows = fmd.jump_level_plain(index, rows)
     n_touched = int(touched.sum())
     nbytes = 192 * n_touched + 4 * 8 + 16 * 4 ** k
     bms, by = bound(nbytes, parents * OPS_PER_JUMP_PARENT)
+    # the instructions the kernel issues for these parents (its note's
+    # count), and the time they take at Hopper's integer issue rates
+    insns = sum(n * JUMP_PARENT_INSNS[kd] for kd, n in kinds.items())
+    popc = sum(n * JUMP_PARENT_POPC[kd] for kd, n in kinds.items())
     return {"shape": f"k={k} over {nblk} fused rows ({4 ** k} table rows)",
-            "launches": k - 1, "parents": parents,
+            "launches": k - 1, "parents": parents, "parent_kinds": kinds,
             "present": int((got[:, 2] > 0).sum()),
             "rows_touched": n_touched, "bound_bytes": nbytes,
             "bound_ops": parents * OPS_PER_JUMP_PARENT,
+            "insns_per_parent": insns / parents,
+            "issue_ms": ((insns - popc) / INT_LANES_PER_S
+                         + popc / POPC_LANES_PER_S) * 1e3,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "max_abs_err": err, "table": got}
 
@@ -1752,6 +1927,7 @@ def time_pingpong_jump(spy: Spy, table, k: int) -> dict:
             "rank_steps": steps,
             "rank_steps_without_jumps": int(plain_work.item()),
             "jump_rows": jump_rows, "iters": int(got.iters),
+            "us_per_step": ms * 1e3 / int(got.iters),
             "iters_without_jumps": int(nojump.iters),
             "ms_without_jumps": nojump_ms, "bound_bytes": nbytes,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,

@@ -1,5 +1,5 @@
 // Kernel K2 (pingpong_fm): ping-pong SFS search with the FM rank walk, one
-// thread per read lane, in two instantiations: narrow (index < 2^31
+// warp per read lane, in two instantiations: narrow (index < 2^31
 // symbols, int32 coordinates) and wide (int64 coordinates, the fused rows'
 // checkpoints split into a low limb of `limb_bits` bits and a 5-bit high
 // limb a symbol in columns 6 and 7; C as int64).
@@ -15,41 +15,62 @@
 // int64 register and only the table's checkpoints carry limbs. A table past
 // 2^31 symbols has more than 16.7M rows, so row offsets are size_t.
 //
-// What bounds it on an H100: each step of a lane is one dependent read of
-// a 192-byte fused row at a data-dependent address (the FM walk), then
-// ~32 popcounts. At chromosome scale the fused table (1.5 bytes/symbol,
-// ~120 MB at 80M symbols) is larger than the 50 MB L2, so a step costs
-// about one device-memory latency; a lane is a serial chain of such steps
-// and the kernel is latency-bound, not bandwidth- or compute-bound. The
-// bytes the work must move are one row per step.
+// What bounds a step on an H100: one dependent read of a 192-byte fused
+// row at a data-dependent address (the FM walk), plus the count over its
+// 32 packed words and one warp reduction. At chromosome scale the fused
+// table (1.5 bytes/symbol, ~120 MB at 80M symbols) is larger than the
+// 50 MB L2, so the row is about one device-memory latency; a lane is a
+// serial chain of such steps and the kernel is latency-bound, not bandwidth-
+// or compute-bound. The bytes the work must move are one row per step.
 //
-// What the design does about it: lane state lives in registers and each
-// lane runs to completion with no lockstep barrier, so a short lane never
-// waits for the batch's slowest one (the XLA loop ran every lane until the
-// last finished). Read symbols are loaded straight from the read
-// (the TPU's 256-symbol chunk cache existed only because XLA lowered a
-// per-lane dynamic index to a slow gather), and emissions go straight to
-// the [Q, cap] outputs. One 32-thread block per warp of lanes spreads the
-// lanes over as many SMs as possible; with ~2.3k lanes per batch that is
-// still only ~72 warps, so latency hiding is poor — more lanes in flight
-// per SM is the first thing to fix.
+// Why a warp per lane: with one thread a lane, each step also ran the 32
+// words' equality masks and 64 popcounts in that one thread, ~1,200 issue
+// cycles on the chain (a quarter-SM issues 16 integer lanes a clock but
+// only 4 popcount lanes), and 2,304 lanes made 72 warps, at most one an SM.
+// Here the 32 threads of a warp hold one lane's state as warp-uniform
+// registers, so every branch is taken by the whole warp. Thread t loads
+// packed word t of the row (the 32 words are 128 coalesced bytes) and
+// threads 0-7 the checkpoint columns, all in one round trip with the
+// read's symbol P[a], which the row's address does not depend on; the
+// checkpoint of the step's symbol then comes by one shuffle. Thread t
+// masks its own word and takes two popcounts, at most 8 each; the two
+// are packed in the halves of one word and summed over the warp by one
+// __reduce_add_sync. A launch has Q warps, WARPS to a block.
+//
+// The pending row a step ahead: an interval wider than the row's 256-symbol
+// span takes two steps (fmd_jax.extend_rank_step: step A ranks at lo and
+// raises `pend`, step B ranks at hi). Both row addresses are known in step
+// A, so step A loads the row at hi >> 7 beside the row at lo >> 7 and
+// counts both in the one reduction (rank at lo in the low half, rank at hi
+// in the high half); step B takes its rank from a register and makes no
+// load at all. Step B still counts as a step (iters, the overflow cadence
+// and the rank-step counter are unchanged); what it saves is the second
+// dependent row latency at the start of every phase. A sentinel step
+// (forward past the read's end) ranks at position 0, as the plain version
+// does; it is known only from P[a], so it reads row 0's checkpoint apart.
 //
 // Jump mode (narrow only, jump_k > 0): the k-mer jump-start of
 // svdss_tpu/ops/pingpong_jax.py:264-302 (key chunks :145-146, :323-327).
 // At a phase transition whose k-mer is present in the table built by kernel
 // K6 (csrc/jump.cu), a lane loads that k-mer's bi-interval as one 16-byte
-// row and skips k - 1 rank steps: going forward it takes x1 and ends at
-// begin + k - 1, restarting backward it takes x0 and begins at
-// begin_new - (k - 1). The JAX package decides a jump from the geometry of
-// its 256-symbol key chunk, whose base 128m is fixed at the start of each
-// 48-step block from the lane's cursor; this kernel keeps that base per
-// lane, recomputed at every block start, so the same transitions jump and
-// the outputs (iters included) are the JAX package's. The key of the window
-// ending at kpos is computed from the read itself (the JAX package uploads
-// a [Q, L+1] key array): -1 when the window starts before the read or holds
-// a symbol outside A..T. Past the padded read the JAX package's key chunks
-// hold 0, the key of poly-A, and a lane can jump there and leave the host
+// row (one broadcast load) and skips k - 1 rank steps: going forward it
+// takes x1 and ends at begin + k - 1, restarting backward it takes x0 and
+// begins at begin_new - (k - 1). The JAX package decides a jump from the
+// geometry of its 256-symbol key chunk, whose base 128m is fixed at the
+// start of each 48-step block from the lane's cursor; this kernel keeps
+// that base per lane, recomputed at every block start, so the same
+// transitions jump and the outputs (iters included) are the JAX package's.
+// The key of the window ending at kpos is computed from the read itself
+// (the JAX package uploads a [Q, L+1] key array): thread i < k loads symbol
+// kpos - i, one ballot finds a symbol outside A..T and one OR-reduction
+// builds the key; -1 when the window starts before the read or ends past
+// the padded read. Past the padded read the JAX package's key chunks hold
+// 0, the key of poly-A, and a lane can jump there and leave the host
 // oracle; here such a window holds no key and the lane follows the oracle.
+//
+// Thread 0 writes the emissions, the per-lane results and the atomics; the
+// warp zeroes the [cap] tails. The launch shape is fixed here and depends
+// on no property of the card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,9 +82,12 @@ constexpr int DEV_BLOCK = 128;
 constexpr int SPAN = 256;
 constexpr int ROW_WORDS = 48;
 constexpr int OCC_COLS = 16;
-constexpr int THREADS = 32;
+constexpr int WARP = 32;
+constexpr int WARPS = 4;      // lanes (warps) per block
+constexpr int THREADS = WARPS * WARP;
 constexpr int CHUNK = 256;    // the JAX package's per-lane key chunk
 constexpr int STRIDE = 128;   // its chunk base granularity
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int comp6(int c) {
   return (c >= 1 && c <= 4) ? 5 - c : c;
@@ -78,19 +102,25 @@ __device__ __forceinline__ uint32_t nib_mask_lt(int bound, int w) {
   return full | (w < (bound & 31) ? (8u << (4 * k)) : 0u);
 }
 
+// nibble-equality bits of a packed word with symbol c: symbols and c are
+// <= 5, so x's nibbles are <= 7
+__device__ __forceinline__ uint32_t nib_eq(uint32_t word, uint32_t cpat) {
+  const uint32_t x = word ^ cpat;
+  return ~(x + 0x77777777u) & 0x88888888u;
+}
+
 // The key of the k-mer of P ending at kpos (sum (sym - 1) * 4^i, the last
 // symbol at 4^0), or -1 when the window starts before the read, ends past
-// the padded read, or holds a symbol outside A..T.
+// the padded read, or holds a symbol outside A..T. Thread i < k loads
+// symbol kpos - i; the result is warp-uniform.
 __device__ __forceinline__ int window_key(const uint8_t* P, int Lp1, int kpos,
-                                          int k) {
+                                          int k, int t) {
   if (kpos - (k - 1) < 0 || kpos >= Lp1) return -1;
-  int key = 0;
-  for (int i = 0; i < k; ++i) {
-    const int s = P[kpos - i];
-    if (s < 1 || s > 4) return -1;
-    key |= (s - 1) << (2 * i);
-  }
-  return key;
+  const int s = t < k ? (int)__ldg(P + kpos - t) : 1;
+  const unsigned bad = __ballot_sync(FULL, s < 1 || s > 4);
+  const unsigned key =
+      __reduce_or_sync(FULL, t < k ? (unsigned)(s - 1) << (2 * t) : 0u);
+  return bad ? -1 : (int)key;
 }
 
 // Checkpoint count of symbol c in a fused row: the int32 column, or in wide
@@ -101,6 +131,18 @@ __device__ __forceinline__ long long occ_at(const int32_t* row, int c,
   const long long lo = __ldg(row + c);
   if (!WIDE) return lo;
   const long long hi = ((uint32_t)__ldg(row + 6) >> (5 * c)) & 31u;
+  return lo + (hi << limb_bits);
+}
+
+// The same from the row's columns 0-7, held by threads
+// 0-7 (ck), by shuffles. Warp-uniform.
+template <bool WIDE>
+__device__ __forceinline__ long long occ_from(int32_t ck, int c,
+                                             int limb_bits) {
+  const long long lo = __shfl_sync(FULL, ck, c);
+  if (!WIDE) return lo;
+  const long long hi =
+      ((uint32_t)__shfl_sync(FULL, ck, 6) >> (5 * c)) & 31u;
   return lo + (hi << limb_bits);
 }
 
@@ -122,7 +164,8 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
   __shared__ Coord C[8];
   if (threadIdx.x < 8) C[threadIdx.x] = Cg[threadIdx.x];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = threadIdx.x & (WARP - 1);
+  const int lane = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (lane >= Q) return;
   const uint8_t* P = seqs + (size_t)lane * Lp1;
   int32_t* oq = out_qs + (size_t)lane * cap;
@@ -134,7 +177,7 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
   const int c0 = active ? P[begin] : 0;
   Coord pos = C[c0], sz = C[c0 + 1] - C[c0];
   bool pend = false;
-  Coord p_rank = 0;
+  Coord p_rank = 0, p_hi = 0;   // step A's ranks at lo and at hi
   int count = 0, blocks = 0;
   long long rank_steps = 0, jump_rows = 0;
   bool overflow = false;
@@ -155,53 +198,76 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
       int a = is_bwd ? (bwd_can ? begin - 1 : begin)
                      : (fwd_can ? end + 1 : end - 1);
       a = max(a, 0);
-      const int c_acc = a < Lp1 ? (int)P[a] : 0;
-      const int c_sel = is_bwd ? c_acc : comp6(c_acc);
-      // forward extension past the last base reads the NUL sentinel: its
-      // interval is forced empty and the step completes at once
-      const bool sent = !is_bwd && c_acc == 0;
-
-      // rank step (fmd_jax.extend_rank_step); a lane that does not extend
-      // runs it as a 0-width query at position 0
-      const bool do_rank = do_ext && !sent;
-      rank_steps += do_rank;
-      const Coord lo = do_rank ? pos : 0;
-      const Coord szm = do_rank ? sz : 0;
+      // the rows of this step's rank (0-width at position 0 when the lane
+      // does not extend), issued with P[a]: their addresses do not depend
+      // on the symbol. Step B of a wide interval loads nothing.
+      const Coord lo = do_ext ? pos : 0;
+      const Coord szm = do_ext ? sz : 0;
       const int off_lo = (int)(lo & (DEV_BLOCK - 1));
       const Coord off_hi = off_lo + szm;
       const Coord hi = lo + szm;
       const bool near = off_hi <= SPAN;
-      const int m_hi = (int)(off_hi < SPAN ? off_hi : SPAN);
-      const Coord blk = pend ? (hi >> 7) : (lo >> 7);
-      const int m_a = (int)(pend ? (hi & (DEV_BLOCK - 1)) : off_lo);
-      const int32_t* row = fused + (size_t)blk * ROW_WORDS;
-      const uint32_t cpat = (uint32_t)c_sel * 0x11111111u;
-      Coord anchor = (Coord)occ_at<WIDE>(row, c_sel, limb_bits);
-      int cnt = 0;
-      const int4* wv = reinterpret_cast<const int4*>(row + OCC_COLS);
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        const int4 x4 = __ldg(wv + v);
-        const uint32_t ws[4] = {(uint32_t)x4.x, (uint32_t)x4.y,
-                                (uint32_t)x4.z, (uint32_t)x4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int w = 4 * v + j;
-          // nibble-equality bits: sym, c <= 5 so x's nibbles are <= 7
-          const uint32_t x = ws[j] ^ cpat;
-          const uint32_t zm = ~(x + 0x77777777u) & 0x88888888u;
-          anchor += __popc(zm & nib_mask_lt(m_a, w));
-          cnt += __popc(zm & nib_mask_lt(m_hi, w) & ~nib_mask_lt(off_lo, w));
+      uint32_t w_lo = 0, w_hi = 0;
+      int32_t ck_lo = 0, ck_hi = 0;
+      if (!pend) {
+        const int32_t* row = fused + (size_t)(lo >> 7) * ROW_WORDS;
+        w_lo = (uint32_t)__ldg(row + OCC_COLS + t);
+        if (t < 8) ck_lo = __ldg(row + t);
+        if (!near) {
+          const int32_t* rh = fused + (size_t)(hi >> 7) * ROW_WORDS;
+          w_hi = (uint32_t)__ldg(rh + OCC_COLS + t);
+          if (t < 8) ck_hi = __ldg(rh + t);
         }
       }
-      bool complete = pend || near;
-      const Coord rank_lo = pend ? p_rank : anchor;
-      Coord szn = pend ? anchor - p_rank : (Coord)cnt;
+      const int c_acc = a < Lp1 ? (int)__ldg(P + a) : 0;
+      const int c_sel = is_bwd ? c_acc : comp6(c_acc);
+      // forward extension past the last base reads the NUL sentinel: its
+      // interval is forced empty and the step completes at once
+      const bool sent = !is_bwd && c_acc == 0;
+      const bool do_rank = do_ext && !sent;
+      rank_steps += do_rank;
+
+      // rank step (fmd_jax.extend_rank_step)
+      bool complete;
+      Coord rank_lo, szn;
+      if (pend) {
+        // step B: the rank at hi came with step A
+        complete = true;
+        rank_lo = p_rank;
+        szn = p_hi - p_rank;
+        pend = false;
+      } else if (do_rank) {
+        const uint32_t cpat = (uint32_t)c_sel * 0x11111111u;
+        const uint32_t zm = nib_eq(w_lo, cpat);
+        const uint32_t below_lo = nib_mask_lt(off_lo, t);
+        const uint32_t n_lo = __popc(zm & below_lo);
+        const uint32_t n_hi =
+            near ? __popc(zm & nib_mask_lt((int)off_hi, t) & ~below_lo)
+                 : __popc(nib_eq(w_hi, cpat)
+                          & nib_mask_lt((int)(hi & (DEV_BLOCK - 1)), t));
+        const uint32_t s = __reduce_add_sync(FULL, n_lo | (n_hi << 16));
+        const Coord anchor = (Coord)occ_from<WIDE>(ck_lo, c_sel, limb_bits)
+                             + (Coord)(s & 0xffffu);
+        rank_lo = anchor;
+        if (near) {
+          complete = true;
+          szn = (Coord)(s >> 16);
+        } else {
+          complete = false;
+          szn = 0;
+          pend = true;
+          p_rank = anchor;
+          p_hi = (Coord)occ_from<WIDE>(ck_hi, c_sel, limb_bits)
+                 + (Coord)(s >> 16);
+        }
+      } else {
+        // a 0-width query at position 0: row 0's checkpoint (the lane
+        // applies it only on a sentinel step, where c_sel is 0)
+        complete = true;
+        szn = 0;
+        rank_lo = sent ? (Coord)occ_at<WIDE>(fused, 0, limb_bits) : 0;
+      }
       const Coord posn = C[c_sel] + rank_lo;
-      pend = do_rank && !near && !pend;
-      p_rank = anchor;
-      if (sent) szn = 0;
-      complete = complete || sent;
 
       const bool upd_b = bwd_can && complete;
       const bool upd_f = fwd_can && complete;
@@ -219,7 +285,7 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
       const bool to_fwd = b_exit && !prefix_match;
       // forward exit: emit the SFS (begin, end - begin + 1)
       if (f_exit) {
-        if (count < cap) {
+        if (t == 0 && count < cap) {
           oq[count] = begin1;
           ol[count] = end1 - begin1 + 1;
         }
@@ -241,7 +307,7 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
         const int kpos = begin1 + jump_k - 1;
         const int key = jumps && kpos - base >= 0
                                 && kpos - base + K_INNER + 1 < CHUNK
-                            ? window_key(P, Lp1, kpos, jump_k) : -1;
+                            ? window_key(P, Lp1, kpos, jump_k, t) : -1;
         if (key >= 0) {
           ++jump_rows;
           const int4 r = __ldg(jt + key);
@@ -255,7 +321,8 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
         dir = 0;
         const int begin_new = overlap == 0 ? begin1 - 1 : end1 + overlap;
         begin1 = begin_new;
-        const int cr = (begin1 >= 0 && begin1 < Lp1) ? (int)P[begin1] : 0;
+        const int cr =
+            (begin1 >= 0 && begin1 < Lp1) ? (int)__ldg(P + begin1) : 0;
         pos = C[cr];
         sz1 = C[cr + 1] - C[cr];
         // safe_b (pingpong_jax.py:276): room for k - 1 and a block's steps
@@ -263,7 +330,7 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
         const int koff = begin_new - base;
         const int key = jumps && begin_new >= jump_k - 1
                                 && koff >= jump_k + K_INNER && koff < CHUNK
-                            ? window_key(P, Lp1, begin_new, jump_k) : -1;
+                            ? window_key(P, Lp1, begin_new, jump_k, t) : -1;
         if (key >= 0) {
           ++jump_rows;
           const int4 r = __ldg(jt + key);
@@ -287,16 +354,18 @@ pingpong_fm_kernel(const int32_t* __restrict__ fused,
     }
   }
   const int n = min(count, cap);
-  n_sfs[lane] = n;
-  for (int k = n; k < cap; ++k) {
+  for (int k = n + t; k < cap; k += WARP) {
     oq[k] = 0;
     ol[k] = 0;
   }
-  ovf_o[lane] = overflow;
-  inc_o[lane] = active;
-  atomicMax(iters, blocks * K_INNER);
-  if (work) atomicAdd(work, (unsigned long long)rank_steps);
-  if (jump_work) atomicAdd(jump_work, (unsigned long long)jump_rows);
+  if (t == 0) {
+    n_sfs[lane] = n;
+    ovf_o[lane] = overflow;
+    inc_o[lane] = active;
+    atomicMax(iters, blocks * K_INNER);
+    if (work) atomicAdd(work, (unsigned long long)rank_steps);
+    if (jump_work) atomicAdd(jump_work, (unsigned long long)jump_rows);
+  }
 }
 
 template <typename Coord, bool WIDE>
@@ -307,7 +376,7 @@ void launch(const void* fused, const void* C, const void* seqs,
             void* overflow, void* incomplete, void* iters, void* work,
             void* jump_work, cudaStream_t s) {
   pingpong_fm_kernel<Coord, WIDE>
-      <<<(Q + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      <<<(Q + WARPS - 1) / WARPS, THREADS, 0, s>>>(
           static_cast<const int32_t*>(fused), static_cast<const Coord*>(C),
           static_cast<const uint8_t*>(seqs),
           static_cast<const int32_t*>(lens), static_cast<const int4*>(jt),

@@ -8,8 +8,9 @@ Every lane is one read and a small state machine:
          minimal absent substring; restart one base left of its end.
 
 On a CUDA tensor `batch_search` launches kernel K2 (``csrc/pingpong.cu``),
-one thread per lane; on a CPU tensor it runs `batch_search_plain`, the
-same function as a lockstep loop of tensor ops over all lanes. Both give
+a warp per lane (one launch, Q warps); on a CPU tensor it runs
+`batch_search_plain`, the same function as a lockstep loop of tensor ops
+over all lanes. Both give
 the host oracle's (query_start, length) pairs in emission order for every
 lane that is neither `overflow` nor `incomplete`; the host pipeline redoes
 those lanes exactly on the host. With the pipeline's overlap (-1) they
