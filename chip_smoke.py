@@ -70,7 +70,16 @@ checkout at first use. Phases, each printing one JSON line:
            instructions a parent, its source note's SASS counts over the
            run's parents of each kind, and their time at Hopper's
            integer issue rates), and the least time the card could take
-           for the same work.
+           for the same work;
+  ablate   K3's timing probes (batch_search_anchor(ablate=), compile-time
+           variants of its round): read, key, text, funnel, noexit and
+           two combinations against their plain versions on the kernels
+           phase's anchor mix and lane-edge reads (every field, the work
+           counts and the stop rounds; noexit also against the launch
+           without it), then "" and each probe timed on the main path's
+           K3 input, alone and under noexit: ms a round of the slowest
+           lane, each part's share of the round and, under noexit, ns a
+           lane-round.
 
 The env line carries each kernel's registers and spills (nvcc's
 ``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
@@ -232,9 +241,10 @@ def ptxas_usage(log: str) -> list:
     out = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'\S*?\d([a-z][a-z_]*_kernel)", line)
+                      r"'\S*?\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line)
         if m:
-            out.append({"kernel": m.group(1)})
+            out.append({"kernel": m.group(1) + (f"<{m.group(2)}>"
+                                                if m.group(2) else "")})
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and out:
@@ -702,11 +712,13 @@ def pool_flags(res) -> torch.Tensor:
             | res.overflow.to(torch.uint8) * OVERFLOW)
 
 
-def check_anchor(rng) -> list:
+def check_anchor(rng, keep: dict) -> list:
     """K3 and K4 against their plain versions (all fields, the work
     counts and K3's per-lane stop rounds, debug_hist), K3 without the stop
     rounds against K3 with them, K4 against K3 under the same per-lane
-    budget, and 64 complete K3 lanes against the host oracle."""
+    budget, and 64 complete K3 lanes against the host oracle. `keep` gets
+    the anchor mix and the lane-edge reads with their tables, for the
+    ablate phase."""
     from svdss_tpu_torch.index.fmd import build_index, genome_text
     from svdss_tpu_torch.ops import anchor_device, anchor_pool
     from svdss_tpu_torch.ops.anchor import build_anchor_index
@@ -719,8 +731,8 @@ def check_anchor(rng) -> list:
     chroms = {"g": g}
     dev, params = anchor_device.build_device_anchor(
         build_anchor_index(genome_text(chroms)), "cuda")
-    enc = anchor_mix(encode_nt6(g), rng) + [
-        encode_nt6(r) for r in long_reads(g, rng, 512)]
+    mix = anchor_mix(encode_nt6(g), rng)
+    enc = mix + [encode_nt6(r) for r in long_reads(g, rng, 512)]
     L = _bucket_len(max(len(e) for e in enc))
     cap = max(128, L // 16)             # the one-shot search stage's cap
     # a repeat-rich genome (a 400 bp unit 200 times in 200 kb of random
@@ -848,6 +860,8 @@ def check_anchor(rng) -> list:
     if not cases[-1]["incomplete"]:
         raise RuntimeError("the budget case cut no lane")
     pool_compare("lane edges", edev, eparams, edge, (33,))
+    keep["anchor_probes"] = (("anchor mix", dev, params, mix),
+                             ("lane edges", edev, eparams, edge))
 
     errs4 = [max(c["max_abs_err"], c["vs_one_shot_same_budget_max_abs_err"],
                  c["vs_first_lanes_max_abs_err"]) for c in pool_cases]
@@ -1391,11 +1405,11 @@ def check_wavefront(rng) -> dict:
 
 def phase_kernels(seed: int, keep: dict) -> dict:
     """Every kernel against its plain version; `keep` gets the repeat-rich
-    wide case for the mesh phase."""
+    wide case for the mesh phase and K3's inputs for the ablate phase."""
     t0 = time.time()
     rng = np.random.default_rng(seed)
     checks = [*check_pingpong(rng), check_pingpong_wide(rng),
-              *check_pingpong_edges(), *check_anchor(rng),
+              *check_pingpong_edges(), *check_anchor(rng, keep),
               check_anchor_wide(rng, keep), check_wavefront(rng)]
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "tolerance": 0, "checks": checks})
@@ -2294,6 +2308,7 @@ def time_anchor_batch(spy: Spy) -> dict:
     bms, by = bound(nbytes, ops)
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap} "
                      f"max_rounds={kw.get('max_rounds')}",
+            "result": got,
             "work": dict(zip(anchor_device.WORK_FIELDS, work)),
             "iters": int(got.iters), "ms_per_round": ms / int(got.iters),
             "bound_bytes": nbytes,
@@ -2436,12 +2451,139 @@ def phase_timing(run: dict, seed: int) -> dict:
            "anchor_wide": time_anchor_wide(spies["anchor_wide"]),
            "wavefront_dp": time_wavefront(spies["wavefront_dp"],
                                           np.random.default_rng(seed))}
+    k3 = out["anchor_batch"].pop("result")
     emit({"phase": "timing", **out})
     bad = [k for k, v in out.items() if v["max_abs_err"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions at "
                            f"the main path's shapes: {bad}")
+    out["anchor_batch_result"] = k3      # for the ablate phase
     return out
+
+
+# ---------------------------------------------------------------- ablate
+
+# K3's probes held against their plain versions, and those timed
+PROBES_CHECKED = ("read", "key", "text", "funnel", "noexit",
+                  "read,key,text,funnel", "noexit,key")
+PROBES_TIMED = ("", "read", "key", "text", "funnel")
+PROBE_CHECK_ROUNDS = 512
+
+
+def phase_ablate(timing: dict, spy: Spy, keep: dict) -> dict:
+    """K3's timing probes (batch_search_anchor(ablate=), compile-time
+    variants of its round): each against its plain version on the kernels
+    phase's anchor-mix and lane-edge reads (every field, the work counts
+    and the stop rounds), a noexit launch also against the launch without
+    it (all but iters); then each timed on the main path's K3 input, alone
+    and under noexit, with its share of the round: the H100 counterpart of
+    the JAX package's TPU cost model."""
+    from svdss_tpu_torch.ops import anchor_device as ad
+    from svdss_tpu_torch.ops.pingpong import pack_reads
+    from svdss_tpu_torch.pipeline.search import _bucket_len
+    t0 = time.time()
+    F = ANCHOR_FIELDS
+    exact = []
+    for name, d, p, encs in keep.pop("anchor_probes"):
+        L = _bucket_len(max(len(e) for e in encs))
+        seqs, lens = pack_reads(encs, pad_to=L, device="cuda")
+        # past the un-probed launches' rounds; some probed lanes are cut
+        max_rounds = PROBE_CHECK_ROUNDS
+        kw = dict(cap=128, max_rounds=max_rounds)
+        launched = {}
+        for ab in ("", *PROBES_CHECKED):
+            work = torch.zeros(4, dtype=torch.int64, device="cuda")
+            before = ad.launches
+            got, done_r = ad.batch_search_anchor(d, p, seqs, lens, work=work,
+                                                 debug_hist=True, ablate=ab,
+                                                 **kw)
+            torch.cuda.synchronize()
+            if ad.launches != before + 1:
+                raise RuntimeError("batch_search_anchor did not launch K3")
+            launched[ab] = got
+            pw = torch.zeros_like(work)
+            pd = torch.full_like(done_r, -1)
+            want = ad.batch_search_anchor_plain(d, p, seqs, lens, 128,
+                                                max_rounds, -1, None, pw, pd,
+                                                ab)
+            case = {"case": name, "ablate": ab, "lanes": len(encs), "L": L,
+                    "max_rounds": max_rounds, "iters": int(got.iters),
+                    "max_abs_err": max_abs_diff(
+                        [getattr(got, f) for f in F] + [work, done_r],
+                        [getattr(want, f) for f in F] + [pw, pd]),
+                    "overflow": int(got.overflow.sum()),
+                    "incomplete": int(got.incomplete.sum()),
+                    "work": dict(zip(ad.WORK_FIELDS, work.tolist()))}
+            if "noexit" in ab:
+                bare = launched[ab.replace("noexit", "").strip(",")]
+                case["vs_without_noexit_max_abs_err"] = max_abs_diff(
+                    [getattr(got, f) for f in F[:-1]],
+                    [getattr(bare, f) for f in F[:-1]]) \
+                    + (int(got.iters) != max_rounds)
+            exact.append(case)
+
+    # the main path's K3 launch (the timing phase's input), each probe
+    # alone and under noexit
+    _, (index, params, seqs, lens), kw = spy.best
+    Q = seqs.shape[0]
+    max_rounds = kw["max_rounds"] or ad.default_max_rounds(seqs.shape[1])
+    base = timing["anchor_batch_result"]
+    rows, by_ab = [], {}
+    for noexit in (False, True):
+        for ab in PROBES_TIMED:
+            full = ",".join(x for x in (ab, "noexit" if noexit else "") if x)
+            work = torch.zeros(4, dtype=torch.int64, device="cuda")
+            got = ad.batch_search_anchor(index, params, seqs, lens,
+                                         work=work, ablate=full, **kw)
+            ms = cuda_ms(lambda: ad.batch_search_anchor(
+                index, params, seqs, lens, ablate=full, **kw), 5)
+            iters = int(got.iters)
+            row = {"ablate": full, "ms": ms, "iters": iters,
+                   "ms_per_round": ms / iters,
+                   "work": dict(zip(ad.WORK_FIELDS, work.tolist()))}
+            if noexit:
+                row["ns_per_lane_round"] = ms * 1e6 / (iters * Q)
+                bare = by_ab[ab]["result"]
+                if ab == "":
+                    # the slowest lane's idle rounds, past its own
+                    row["us_per_idle_round"] = (
+                        (ms - by_ab[""]["ms"]) * 1e3
+                        / max(1, iters - by_ab[""]["iters"]))
+                row["vs_without_noexit_max_abs_err"] = max_abs_diff(
+                    [getattr(got, f) for f in ANCHOR_FIELDS[:-1]],
+                    [getattr(bare, f) for f in ANCHOR_FIELDS[:-1]]) \
+                    + (iters != max_rounds)
+            elif ab == "":
+                row["vs_timing_phase_max_abs_err"] = max_abs_diff(
+                    [getattr(got, f) for f in ANCHOR_FIELDS],
+                    [getattr(base, f) for f in ANCHOR_FIELDS])
+            if not noexit:
+                by_ab[ab] = dict(row, result=got)
+            rows.append(row)
+    # a part's share of the round: what leaving it out saves, over the
+    # un-probed round (ms a round; under noexit every launch runs
+    # max_rounds rounds)
+    for noexit in (False, True):
+        group = [r for r in rows if ("noexit" in r["ablate"]) == noexit]
+        b = group[0]["ms_per_round"]
+        for r in group[1:]:
+            r["share_of_round"] = (b - r["ms_per_round"]) / b
+    errs = ([c["max_abs_err"] for c in exact]
+            + [c.get("vs_without_noexit_max_abs_err", 0) for c in exact]
+            + [r.get("vs_without_noexit_max_abs_err", 0) for r in rows]
+            + [r.get("vs_timing_phase_max_abs_err", 0) for r in rows])
+    info = {"phase": "ablate", "seconds": time.time() - t0,
+            "gpu": nvidia_smi(), "tolerance": 0,
+            "shape": f"Q={Q} ({int((lens > 1).sum())} live) "
+                     f"L+1={seqs.shape[1]} cap={kw['cap']} "
+                     f"max_rounds={max_rounds}",
+            "exact": exact, "timed": rows,
+            "mismatches": sum(e > 0 for e in errs)}
+    emit(info)
+    if info["mismatches"]:
+        raise RuntimeError("K3's probes disagree with their plain versions "
+                           "or with the launch without noexit")
+    return info
 
 
 # ----------------------------------------------------------------- main
@@ -2493,6 +2635,7 @@ def main() -> int:
         phase_mesh(run, keep)
         phase_shards(wd, run)
         timing = phase_timing(run, args.seed)
+        phase_ablate(timing, run["spies"]["anchor_batch"], keep)
     finally:
         if not args.keep:
             shutil.rmtree(wd, ignore_errors=True)

@@ -60,9 +60,36 @@
 // Launch shape: WARPS warps (reads) a block, fixed here; a K3 grid covers
 // its Q lanes, a K4 grid min(lanes, M) warps. It depends on no property of
 // the card.
+//
+// Cost probes (K3 only): the JAX package's batch_search_anchor(ablate=)
+// swaps one part of its round for dummy work, so that the time saved is
+// that part's cost (anchor_jax.py:345-349 read, :357-359 key, :453-454
+// text, :458-459 funnel, :669-679 noexit). run_lane takes them as a
+// compile-time mask (ABL_*), and svdss_anchor_batch dispatches to one of
+// 32 instantiations; mask 0 is the lane above, with no test of the mask
+// in it, and K4 always runs mask 0. Each probe removes from this round
+// what JAX's removes from its own and keeps a data dependence on what it
+// replaces (ops/anchor_device.py batch_search_anchor_plain defines each
+// one symbol for symbol):
+//   read    no load at the round's read address: row column c is the
+//           read's symbol c (its first 128 bytes, an L1-resident line),
+//           an ACGT base moved on by nibble c & 7 of the row number
+//           side * nwm + m_r (mod 4);
+//   key     no key-digit loads, ballot or reduction: key = col_a & 4^k-1,
+//           every digit valid;
+//   text    no text load: the text symbol a read symbol meets is that
+//           read symbol XOR nibble (text column) & 7 of the text row tr;
+//   funnel  the text taken at the read's column cmp_off + d, not col_t +
+//           d, XOR nibble (cmp_off + d) & 7 of col_t - cmp_off;
+//   noexit  the warp runs exactly max_rounds rounds: after its lane
+//           stops, each round loads what a stopped lane's round loads in
+//           JAX's lockstep (its read row, small row 0, text row 0), each
+//           round behind the last through a run-time 0 (K3's `zero`
+//           argument), and changes nothing.
 
 #include <climits>
 #include <cstdint>
+#include <utility>
 #include <cuda_runtime.h>
 
 namespace {
@@ -75,6 +102,9 @@ constexpr int THREADS = WARPS * WARP;
 constexpr int PER_THREAD = SPAN / WARP;   // compared symbols per thread
 constexpr unsigned FULL = 0xffffffffu;
 enum { KEY = 0, SUB = 1, POS = 2, VER = 3 };
+// the cost probes' bits (ops/anchor_device.py ABLATIONS)
+enum { ABL_READ = 1, ABL_KEY = 2, ABL_TEXT = 4, ABL_FUNNEL = 8,
+       ABL_NOEXIT = 16, ABL_MASKS = 32 };
 
 struct Tables {
   const int4* small;       // [X, 4] int32
@@ -131,6 +161,27 @@ __device__ __forceinline__ void text_syms(const Tables& T, int p, int* ts) {
   }
 }
 
+// Nibble c & 7 of x: the value a JAX probe XORs into symbol c of a row.
+__device__ __forceinline__ int nib(int x, int c) {
+  return (int)(((unsigned)x >> (4 * (c & 7))) & 0xFu);
+}
+
+// Column c of the round's read row (row `rowid` = side * nwm + m_r of the
+// JAX layout, from packed position ybase): the working side's symbol;
+// under the read probe side 0's symbol c, an ACGT base moved on by nibble
+// c & 7 of rowid (mod 4), and 0 outside the row's 128 columns.
+template <int ABL>
+__device__ __forceinline__ int row_sym(const uint8_t* P, int plen, int side,
+                                       int w8, int ybase, int rowid, int c) {
+  if constexpr ((ABL & ABL_READ) != 0) {
+    if (c < 0 || c >= SPAN) return 0;
+    const int s = read_sym(P, plen, 0, w8, c);
+    return (s >= 1 && s <= 4) ? ((s - 1 + nib(rowid, c)) & 3) + 1 : s;
+  } else {
+    return read_sym(P, plen, side, w8, ybase + c);
+  }
+}
+
 __device__ __forceinline__ int quad(int a, int b, int c, int d, int sel) {
   const int lo = (sel & 1) ? b : a;
   const int hi = (sel & 1) ? d : c;
@@ -143,11 +194,16 @@ __device__ __forceinline__ int quad(int a, int b, int c, int d, int sel) {
 // compare is the same in all 32 threads. A lane whose read is shorter
 // than 1 does nothing. budget_on adds the per-lane budget: a lane still
 // running in its round number `budget` is flagged for the host (the
-// pool's rule). Thread 0 writes the emissions.
+// pool's rule). Thread 0 writes the emissions. ABL: the cost probes
+// (0 on every search path); LaneEnd.rounds counts the lane's own rounds,
+// not noexit's idle ones, whose loads `zero` (0, which the compiler
+// cannot fold) chains.
+template <int ABL>
 __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
                             int len, int nwm, int cap, int max_rounds,
                             bool budget_on, int budget, int overlap,
-                            int32_t* oq, int32_t* ol, Work& wk, int t) {
+                            int32_t* oq, int32_t* ol, Work& wk, int t,
+                            int zero) {
   const int k = T.k, j0 = T.j0;
   const int w8 = 64 * (nwm + 1);
   bool active = len >= 1, fb = false, overflow = false;
@@ -175,6 +231,7 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       const int m_r = min(max(rstart >> 6, 0), nwm - 1);
       const int col_a = rstart - (m_r << 6);
       const int ybase = m_r << 6;
+      const int rowid = dirb * nwm + m_r;
       // chained lanes read their row at u: compare from k symbols in
       const int cmp_off = is_ver ? col_a : col_a + k;
 
@@ -182,10 +239,10 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       // onwards), loaded ahead of the table row, which they do not need
       int rs[PER_THREAD] = {};
       if (!is_sub) {
-        const int y = ybase + cmp_off + PER_THREAD * t;
+        const int c = cmp_off + PER_THREAD * t;
 #pragma unroll
         for (int i = 0; i < PER_THREAD; ++i)
-          rs[i] = read_sym(P, plen, dirb, w8, y + i);
+          rs[i] = row_sym<ABL>(P, plen, dirb, w8, ybase, rowid, c + i);
       }
 
       // KEY: thread i < k holds key digit i, the symbol at col_a + i
@@ -193,18 +250,24 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
       bool clean = false, floor_case = false, use_meta = false;
       bool to_sub_short = false, fb_new = false;
       if (is_key) {
-        int sym = 0;
-        if (t < k) {
-          const int c = col_a + t;
-          sym = (c >= 0 && c < SPAN) ? read_sym(P, plen, dirb, w8, ybase + c)
-                                     : 0;
+        int validm;
+        if constexpr ((ABL & ABL_KEY) != 0) {
+          key_new = col_a & ((1 << (2 * k)) - 1);
+          validm = (1 << k) - 1;
+        } else {
+          int sym = 0;
+          if (t < k) {
+            const int c = col_a + t;
+            sym = (c >= 0 && c < SPAN)
+                      ? row_sym<ABL>(P, plen, dirb, w8, ybase, rowid, c)
+                      : 0;
+          }
+          validm = (int)__ballot_sync(FULL, t < k && sym >= 1 && sym <= 4);
+          key_new = (int)__reduce_or_sync(
+              FULL, t < k ? (unsigned)min(max(sym - 1, 0), 3)
+                                << (2 * (k - 1 - t))
+                          : 0u);
         }
-        const int validm = (int)__ballot_sync(
-            FULL, t < k && sym >= 1 && sym <= 4);
-        key_new = (int)__reduce_or_sync(
-            FULL, t < k ? (unsigned)min(max(sym - 1, 0), 3)
-                              << (2 * (k - 1 - t))
-                        : 0u);
         const int need = (1 << min(max(mk, 0), 30)) - 1;
         clean = (validm & need) == need;
         floor_case = maxlen <= j0;
@@ -275,8 +338,23 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
           const int d0 = PER_THREAD * t;
           int mine = SPAN;
           if (d0 < lim) {
+            // the text row's column of this thread's first symbol
+            const int c_t =
+                ((ABL & ABL_FUNNEL) != 0 ? cmp_off : col_t) + d0;
             int ts[PER_THREAD];
-            text_syms(T, tstart + d0, ts);
+            if constexpr ((ABL & ABL_TEXT) != 0) {
+#pragma unroll
+              for (int i = 0; i < PER_THREAD; ++i)
+                ts[i] = rs[i] ^ nib(tr, c_t + i);
+            } else {
+              text_syms(T, (ABL & ABL_FUNNEL) != 0 ? (tr << 6) + c_t
+                                                   : tstart + d0, ts);
+            }
+            if constexpr ((ABL & ABL_FUNNEL) != 0) {
+#pragma unroll
+              for (int i = 0; i < PER_THREAD; ++i)
+                ts[i] ^= nib(col_t - cmp_off, c_t + i);
+            }
 #pragma unroll
             for (int i = PER_THREAD - 1; i >= 0; --i)
               if (d0 + i < lim && rs[i] != ts[i]) mine = d0 + i;
@@ -284,7 +362,7 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
           f = min(__reduce_min_sync(FULL, mine), lim);
           wk.syms += f < lim ? f + 1 : lim;
         }
-        ++wk.text;
+        if constexpr ((ABL & ABL_TEXT) == 0) ++wk.text;
         ext_new = ext_eff + max(f, 0);
         cont_occ = f >= run_valid && ext_new < vcap;
         if (!cont_occ) {
@@ -365,6 +443,35 @@ __device__ LaneEnd run_lane(const Tables& T, const uint8_t* P, int plen,
     if (count > cap) overflow = true;
     if (overflow) active = false;
   }
+  if constexpr ((ABL & ABL_NOEXIT) != 0) {
+    // idle rounds to max_rounds: the read row at the lane's last
+    // position (thread t its columns 4t..4t+3) beside small row 0, then
+    // text row 0 (thread t its word t / 2), as a round's read symbols
+    // beside its table row and its text behind that row; `zero` puts
+    // each round's addresses behind the last round's loads, and the sink
+    // goes into count as 0
+    const bool is_b = dirb == 1;
+    const int u = is_b ? len - 1 - anc : anc;
+    int rstart = mode == VER ? u + k + ext : u;
+    if (is_b) rstart += w8 - len;
+    const int m_r = min(max(rstart >> 6, 0), nwm - 1);
+    const int rowid = dirb * nwm + m_r;
+    int sink = 0;
+    for (int ri = r; ri < max_rounds; ++ri) {
+      const int z = sink & zero;
+      int v = 0;
+#pragma unroll
+      for (int i = 0; i < PER_THREAD; ++i)
+        v ^= row_sym<ABL>(P, plen, dirb, w8, m_r << 6, rowid,
+                          PER_THREAD * t + z + i);
+      const int4 row = __ldg(T.small + z);
+      int w = row.x ^ row.y ^ row.z ^ row.w;
+      if constexpr ((ABL & ABL_TEXT) == 0)
+        w ^= (int)__ldg(T.text + (t >> 1) + (w & zero));
+      sink = v ^ w;
+    }
+    count += sink & zero;
+  }
   LaneEnd e;
   e.count = count;
   e.rounds = r;
@@ -392,6 +499,7 @@ __device__ __forceinline__ void zero_tail(int32_t* oq, int32_t* ol, int n,
   }
 }
 
+template <int ABL>
 __global__ void __launch_bounds__(THREADS)
 anchor_batch_kernel(Tables T, const uint8_t* __restrict__ seqs,
                     const int32_t* __restrict__ lens,
@@ -401,24 +509,24 @@ anchor_batch_kernel(Tables T, const uint8_t* __restrict__ seqs,
                     int32_t* __restrict__ n_sfs, uint8_t* __restrict__ ovf_o,
                     uint8_t* __restrict__ inc_o, int32_t* __restrict__ iters,
                     unsigned long long* __restrict__ work,
-                    int32_t* __restrict__ done_r) {
+                    int32_t* __restrict__ done_r, int zero) {
   const int q = blockIdx.x * WARPS + threadIdx.x / WARP;
   const int t = threadIdx.x % WARP;
   if (q >= Q) return;              // a whole warp
   int32_t* oq = out_qs + (size_t)q * cap;
   int32_t* ol = out_l + (size_t)q * cap;
   Work wk;
-  const LaneEnd e = run_lane(
+  const LaneEnd e = run_lane<ABL>(
       T, seqs + (size_t)q * Lp1, Lp1, lens[q], (Lp1 + 63) / 64, cap,
       max_rounds, budget != nullptr, budget ? budget[q] : 0, overlap, oq,
-      ol, wk, t);
+      ol, wk, t, zero);
   const int n = min(e.count, cap);
   zero_tail(oq, ol, n, cap, t);
   if (t == 0) {
     n_sfs[q] = n;
     ovf_o[q] = e.overflow;
     inc_o[q] = e.fb || e.active;
-    atomicMax(iters, e.rounds);
+    atomicMax(iters, (ABL & ABL_NOEXIT) != 0 ? max_rounds : e.rounds);
     add_work(work, wk);
     // the JAX package's per-lane stop round (debug_hist): a lane stops in
     // its last round (an end, a host flag) or at the check after a block
@@ -447,9 +555,9 @@ anchor_pool_kernel(Tables T, const uint8_t* __restrict__ syms,
     const int len = lens[i];
     int32_t* oq = out_qs + (size_t)i * cap;
     int32_t* ol = out_l + (size_t)i * cap;
-    const LaneEnd e = run_lane(T, syms + offs[i], len, len, nwm, cap,
+    const LaneEnd e = run_lane<0>(T, syms + offs[i], len, len, nwm, cap,
                                INT_MAX, true, 6 * len + 64, overlap, oq, ol,
-                               wk, t);
+                               wk, t, 0);
     const int n = min(e.count, cap);
     zero_tail(oq, ol, n, cap, t);
     if (t == 0) {
@@ -478,32 +586,47 @@ Tables make_tables(const void* small, long long X, const void* text, int n,
   return T;
 }
 
+using BatchKernel = decltype(&anchor_batch_kernel<0>);
+
+// K3's instantiation for probe mask `ablate` (0 <= ablate < ABL_MASKS).
+template <int... A>
+BatchKernel batch_kernel(int ablate, std::integer_sequence<int, A...>) {
+  static const BatchKernel kernels[] = {&anchor_batch_kernel<A>...};
+  return kernels[ablate];
+}
+
 }  // namespace
 
 // K3: one-shot batch, one warp per lane. seqs [Q, Lp1] uint8, lens [Q]
 // int32, budget [Q] int32 or null; outputs qs/length [Q, cap] int32, n_sfs
 // [Q] int32, overflow and incomplete [Q] bool, iters [] int32; work uint64
 // [4] or null (added to); done_r [Q] int32 or null: a lane's stop round,
-// written for the lanes that stop (the caller fills it with -1).
+// written for the lanes that stop (the caller fills it with -1); ablate:
+// the cost probes' mask (ABL_*, 0 on every search path).
 extern "C" int svdss_anchor_batch(
     const void* small, long long X, const void* text, int n, int k, int j0,
     int cmax, int pos_base, const void* bm_bases, const void* seqs,
     const void* lens, const void* budget, int Q, int Lp1, int cap,
     int max_rounds, int overlap, void* out_qs, void* out_l, void* n_sfs,
     void* overflow, void* incomplete, void* iters, void* work, void* done_r,
-    void* stream) {
+    int ablate, void* stream) {
+  if (ablate < 0 || ablate >= ABL_MASKS)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tables T = make_tables(small, X, text, n, k, j0, cmax, pos_base,
                                bm_bases);
   cudaMemsetAsync(iters, 0, sizeof(int32_t), s);
   if (Q > 0) {
-    anchor_batch_kernel<<<(Q + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+    const BatchKernel kernel = batch_kernel(
+        ablate, std::make_integer_sequence<int, ABL_MASKS>{});
+    kernel<<<(Q + WARPS - 1) / WARPS, THREADS, 0, s>>>(
         T, static_cast<const uint8_t*>(seqs), static_cast<const int32_t*>(lens),
         static_cast<const int32_t*>(budget), Q, Lp1, cap, max_rounds, overlap,
         static_cast<int32_t*>(out_qs), static_cast<int32_t*>(out_l),
         static_cast<int32_t*>(n_sfs), static_cast<uint8_t*>(overflow),
         static_cast<uint8_t*>(incomplete), static_cast<int32_t*>(iters),
-        static_cast<unsigned long long*>(work), static_cast<int32_t*>(done_r));
+        static_cast<unsigned long long*>(work), static_cast<int32_t*>(done_r),
+        0);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,9 @@ package's ``ops/anchor_jax.py`` written out in tensor ops over all lanes.
 Both give that module's six result fields exactly, including which lanes
 are incomplete and the round count: those follow the JAX package's row
 layout (reads and text in 128-symbol rows at stride 64, overflow checked
-every 8 rounds), which the kernel reproduces arithmetically.
+every 8 rounds), which the kernel reproduces arithmetically. Its
+``ablate`` cost probes (`ABLATIONS`) are compile-time variants of K3 and
+branches of the plain version.
 
 Table layout (`build_device_anchor`, the same rows as the JAX package's):
 
@@ -65,6 +67,13 @@ KEY, SUB, POS, VER = 0, 1, 2, 3
 # the `work` counters: lane rounds, small-table rows read, text rows
 # compared against, symbols compared
 WORK_FIELDS = ("rounds", "table_rows", "text_rows", "symbols")
+
+# the JAX package's cost probes of batch_search_anchor(ablate=), bit i of
+# the mask for word i (csrc/anchor.cu ABL_*); batch_search_anchor_plain
+# defines each
+ABLATIONS = ("read", "key", "text", "funnel", "noexit")
+ABL_READ, ABL_KEY, ABL_TEXT, ABL_FUNNEL, ABL_NOEXIT = (
+    1 << i for i in range(len(ABLATIONS)))
 
 launches = 0     # kernel K3 launches since the last reset
 
@@ -189,6 +198,12 @@ def default_max_rounds(lp1: int) -> int:
     return 6 * (lp1 - 1) + 64
 
 
+def ablate_mask(ablate: str) -> int:
+    """The probe mask of an `ablate` string by the JAX package's rule: a
+    probe is on when its word is a substring (any string is accepted)."""
+    return sum(1 << i for i, w in enumerate(ABLATIONS) if w in ablate)
+
+
 # ------------------------------------------------------------- entry point
 
 def batch_search_anchor(index: DeviceAnchorIndex, params: AnchorParams,
@@ -197,7 +212,7 @@ def batch_search_anchor(index: DeviceAnchorIndex, params: AnchorParams,
                         overlap: int = -1,
                         budget: Optional[torch.Tensor] = None,
                         work: Optional[torch.Tensor] = None,
-                        debug_hist: bool = False):
+                        debug_hist: bool = False, ablate: str = ""):
     """Anchor-verify ping-pong over a padded read batch.
 
     seqs: [Q, L+1] uint8 nt6, 0-padded; lens: [Q] int32. max_rounds=0
@@ -208,7 +223,9 @@ def batch_search_anchor(index: DeviceAnchorIndex, params: AnchorParams,
     debug_hist the result comes as (result, done_r), done_r the JAX
     package's per-lane stop round (int32 [Q]): the round after which a
     lane stopped (an overflowed lane: the round of the merge that found
-    it), -1 if it never did."""
+    it), -1 if it never did. ablate: the JAX package's timing probes
+    (`ABLATIONS`, each on when its word is a substring; defined in
+    `batch_search_anchor_plain`), "" on every search path."""
     Q, Lp1 = seqs.shape
     if seqs.dtype != torch.uint8 or lens.dtype != torch.int32 \
             or lens.shape != (Q,):
@@ -234,11 +251,11 @@ def batch_search_anchor(index: DeviceAnchorIndex, params: AnchorParams,
         res = _launch(index, params, seqs.contiguous(), lens.contiguous(),
                       cap, max_rounds, overlap,
                       None if budget is None else budget.contiguous(), work,
-                      done_r)
+                      done_r, ablate_mask(ablate))
     else:
         res = batch_search_anchor_plain(index, params, seqs, lens, cap,
                                         max_rounds, overlap, budget, work,
-                                        done_r)
+                                        done_r, ablate)
     return (res, done_r) if debug_hist else res
 
 
@@ -264,7 +281,7 @@ def table_args(index: DeviceAnchorIndex, params: AnchorParams):
 
 
 def _launch(index, params, seqs, lens, cap, max_rounds, overlap, budget,
-            work, done_r=None) -> PingPongResult:
+            work, done_r=None, mask=0) -> PingPongResult:
     global launches
     Q, Lp1 = seqs.shape
     dev = seqs.device
@@ -282,10 +299,12 @@ def _launch(index, params, seqs, lens, cap, max_rounds, overlap, budget,
         max_rounds, overlap, out_qs.data_ptr(), out_l.data_ptr(),
         n_sfs.data_ptr(), overflow.data_ptr(), incomplete.data_ptr(),
         iters.data_ptr(), work.data_ptr() if work is not None else None,
-        done_r.data_ptr() if done_r is not None else None,
+        done_r.data_ptr() if done_r is not None else None, mask,
         stream_handle(dev))
     check_launch(rc, "anchor_batch")
     launches += 1
+    if mask & ABL_NOEXIT and Q == 0:
+        iters.fill_(max_rounds)      # no warp ran; the lockstep's count
     return PingPongResult(out_qs, out_l, n_sfs, overflow, incomplete, iters)
 
 
@@ -308,6 +327,12 @@ def read_rows(seqs: torch.Tensor) -> torch.Tensor:
     return both.unfold(2, SPAN, STRIDE).reshape(Q, 2 * nwm, SPAN)
 
 
+def _nib(x: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """Nibble col & 7 of x (int32 [Q]) at each column of col ([Q, C] or
+    [1, C]): what a JAX probe XORs into symbol col of a row."""
+    return (x[:, None] >> (4 * (col & 7))) & 0xF
+
+
 def _unpack_words(words: torch.Tensor) -> torch.Tensor:
     """[Q, 16] int32 nibble-packed rows -> [Q, 128] int32 symbols."""
     sh = torch.arange(8, device=words.device, dtype=torch.int64) * 4
@@ -321,15 +346,48 @@ def batch_search_anchor_plain(index: DeviceAnchorIndex,
                               overlap: int = -1,
                               budget: Optional[torch.Tensor] = None,
                               work: Optional[torch.Tensor] = None,
-                              done_r: Optional[torch.Tensor] = None
-                              ) -> PingPongResult:
+                              done_r: Optional[torch.Tensor] = None,
+                              ablate: str = "") -> PingPongResult:
     """Plain PyTorch version of kernel K3: the JAX package's round body
     (anchor_jax._make_round_body), staging merge (_merge_stage) and
     while-loops, written out over [Q] tensors. All lanes advance in
     lockstep; emissions are staged and merged into [Q, cap] every 8
     rounds, when overflowed lanes stop. `done_r` (int32 [Q], optional,
     filled with -1) takes each lane's stop round as the JAX package's
-    debug_hist gives it."""
+    debug_hist gives it.
+
+    `ablate` turns on the JAX package's timing probes (a probe is on when
+    its word is a substring). Each removes one part of the round and
+    keeps a data dependence on what it replaces, so the rest of the round
+    still runs; the results are then not the search's. A round reads its
+    read row R (128 columns: row m_r of the working side, at read
+    position 64 m_r + c for column c) and compares read column
+    cmp_off + d with text-row column c_t(d) = col_t + d of text row tr
+    (position tstart + d, 0 outside [0, n)), d = 0, 1, ...:
+
+    - ``read``: R[c] = side 0's symbol c (the read zero-padded), an ACGT
+      base moved on by nibble c & 7 of the row number dirb * nwm + m_r
+      (mod 4), for the key digits and the compare. JAX XORs that nibble
+      into the symbol (anchor_jax.py:345-347), which makes a key digit
+      invalid wherever the nibble is 5 or more, so every lane stops for
+      the host at its first round; this value keeps the lanes running.
+    - ``key``: key = col_a & (4^k - 1), every digit valid (JAX's
+      :357-359, exactly).
+    - ``text``: no text row is read; the text symbol at d is R[cmp_off +
+      d] XOR nibble c_t(d) & 7 of tr (JAX XORs the read row with tr,
+      :453-454). `work` counts no text rows.
+    - ``funnel``: no alignment to the read's phase: c_t(d) = cmp_off + d
+      (text position 64 tr + cmp_off + d), and the text symbol is XORed
+      with nibble c_t(d) & 7 of col_t - cmp_off (JAX's :458-459).
+    - ``noexit``: exactly max_rounds rounds, as JAX's :669-679; stopped
+      lanes change nothing, so every field but ``iters`` (= max_rounds)
+      is the un-probed one. `work` counts the lanes' own rounds alone
+      (the kernel's idle rounds are not counted).
+
+    The probes combine (``text`` and ``funnel``: R[cmp_off + d] XOR
+    nibble (cmp_off + d) & 7 of tr and of col_t - cmp_off). A mismatch is
+    a symbol that differs."""
+    mask = ablate_mask(ablate)
     dev = seqs.device
     Q, Lp1 = seqs.shape
     k, j0, cmax = params.k, params.j0, params.cmax
@@ -383,17 +441,28 @@ def batch_search_anchor_plain(index: DeviceAnchorIndex,
         rstart = torch.where(is_ver, u + k + s["ext"], u)
         rstart = rstart + torch.where(is_b, (nwm + 1) * STRIDE - lens, 0)
         m_r = torch.clamp(rstart >> 6, 0, nwm - 1)
-        chunk = rows[lane, (dirb * nwm + m_r).long()].to(torch.int32)
+        rowid = dirb * nwm + m_r
+        if mask & ABL_READ:
+            s0 = rows[:, 0].to(torch.int32)
+            chunk = torch.where((s0 >= 1) & (s0 <= 4),
+                                ((s0 - 1 + _nib(rowid, c128)) & 3) + 1, s0)
+        else:
+            chunk = rows[lane, rowid.long()].to(torch.int32)
         col_a = rstart - (m_r << 6)
 
         # KEY: k symbols from the row, key digit i = symbol u + k-1-i
-        key = z()
-        validm = z()
-        for i in range(k):
-            sym = sym_at(chunk, col_a + i)
-            ok = (sym >= 1) & (sym <= 4)
-            key = key | (torch.clamp(sym - 1, 0, 3) << (2 * (k - 1 - i)))
-            validm = validm | torch.where(ok, 1 << i, 0)
+        if mask & ABL_KEY:
+            key = col_a & ((1 << (2 * k)) - 1)
+            validm = torch.full((Q,), (1 << k) - 1, **i32)
+        else:
+            key = z()
+            validm = z()
+            for i in range(k):
+                sym = sym_at(chunk, col_a + i)
+                ok = (sym >= 1) & (sym <= 4)
+                key = key | (torch.clamp(sym - 1, 0, 3)
+                             << (2 * (k - 1 - i)))
+                validm = validm | torch.where(ok, 1 << i, 0)
         need_mask = torch.where(mk >= 31, 2 ** 31 - 1,
                                 (1 << mk.clamp(0, 30)) - 1)
         clean = (validm & need_mask) == need_mask
@@ -461,13 +530,20 @@ def batch_search_anchor_plain(index: DeviceAnchorIndex,
         # after cmp_off bounds this round's run
         tstart = occ_eff + k + ext_eff
         tr = torch.clamp(tstart >> 6, 0, nrow - 1)
-        trow = _unpack_words(
-            index.text_words[torch.where(ver_like, tr, 0).long()])
         col_t = tstart - (tr << 6)
-        src = c128 + (col_t - cmp_off)[:, None]
-        shifted = torch.where(
-            (src >= 0) & (src < SPAN),
-            trow.gather(1, src.clamp(0, SPAN - 1).long()), 0)
+        # the text-row column that read column c meets
+        src = (c128.expand(Q, SPAN) if mask & ABL_FUNNEL
+               else c128 + (col_t - cmp_off)[:, None])
+        if mask & ABL_TEXT:
+            shifted = chunk ^ _nib(tr, src)
+        else:
+            trow = _unpack_words(
+                index.text_words[torch.where(ver_like, tr, 0).long()])
+            shifted = torch.where(
+                (src >= 0) & (src < SPAN),
+                trow.gather(1, src.clamp(0, SPAN - 1).long()), 0)
+        if mask & ABL_FUNNEL:
+            shifted = shifted ^ _nib(col_t - cmp_off, src)
         mism = (shifted != chunk) & (c128 >= cmp_off[:, None])
         firstc = torch.where(mism, c128, SPAN).amin(dim=1)
         first = torch.where(firstc >= SPAN, SPAN, firstc - cmp_off)
@@ -540,7 +616,8 @@ def batch_search_anchor_plain(index: DeviceAnchorIndex,
                                torch.where(first < D, first + 1, D), 0)
             work.add_(torch.stack([
                 active.sum(), (use_meta | is_sub | is_pos).sum(),
-                ver_like.sum(), nsym.sum()]).to(torch.int64))
+                (ver_like & (not mask & ABL_TEXT)).sum(), nsym.sum()]
+            ).to(torch.int64))
 
         active2 = s["active"] & ~(prefix_match | emit_done)
         fb2 = s["fb"] | (fb_new & s["active"])
@@ -602,6 +679,10 @@ def batch_search_anchor_plain(index: DeviceAnchorIndex,
             round_body(rounds)
             rounds += 1
         merge(rounds)
+    if mask & ABL_NOEXIT:
+        # the lockstep runs on to max_rounds; rounds and merges with no
+        # lane left change nothing
+        rounds = max_rounds
     return PingPongResult(
         qs=out_qs[:, :cap].contiguous(), length=out_l[:, :cap].contiguous(),
         n_sfs=s["nsfs"], overflow=s["overflow"],

@@ -27,7 +27,8 @@ chunk with that budget.
 from __future__ import annotations
 
 from collections import deque
-from typing import Deque, Iterator, List, NamedTuple, Optional, Tuple
+from typing import (Deque, Iterable, Iterator, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -150,11 +151,13 @@ def pool_search_plain(index: DeviceAnchorIndex, params: AnchorParams,
 class AnchorPool:
     """Streams an unbounded read sequence through the anchor engine.
 
-    The driver API of the JAX package's pool, as the search stage uses it:
-    `feed`, `pump`, `drain`, `queued`, `in_flight`, `M` (reads per chunk:
-    twice the lanes, so lanes refill from the chunk as they finish) and
-    `Lp1` (padded width). At most two chunks are in flight: one
-    running, the next queued behind it on the card."""
+    The streaming API of the JAX package's pool: `feed`, `pump`, `drain`,
+    `run`, `queued`, `in_flight`, `occupied`, `M` (reads per chunk: twice
+    the lanes, so lanes refill from the chunk as they finish) and `Lp1`
+    (padded width). At most two chunks are in flight: one running, the
+    next queued behind it on the card. (The JAX pool's `free_slots`, the
+    room in its device reservoir, has no counterpart: there is no
+    reservoir.)"""
 
     def __init__(self, index: DeviceAnchorIndex, params: AnchorParams,
                  lanes: int, read_len: int, cap: int = 128,
@@ -183,6 +186,12 @@ class AnchorPool:
     @property
     def in_flight(self) -> int:
         return self._pushed - self._done
+
+    @property
+    def occupied(self) -> int:
+        """Reads launched and not yet collected (the JAX pool's reads in
+        its lanes and reservoir)."""
+        return self.in_flight
 
     def feed(self, tag: object, enc: np.ndarray) -> None:
         """Queue one nt6 read (len <= read_len) under an opaque tag that
@@ -248,4 +257,21 @@ class AnchorPool:
                                       Optional[List[Tuple[int, int]]]]]:
         """Pump until every queued and launched read has finished."""
         while self._queue or self._flight:
+            yield from self.pump()
+
+    def run(self, reads: Iterable[np.ndarray]
+            ) -> Iterator[Tuple[int, Optional[List[Tuple[int, int]]]]]:
+        """Search a read stream, keeping a chunk queued ahead: yields
+        (ordinal in `reads`, pairs | None), in completion order."""
+        it = enumerate(reads)
+        exhausted = False
+        while True:
+            while not exhausted and self.queued < self.M:
+                nxt = next(it, None)
+                if nxt is None:
+                    exhausted = True
+                else:
+                    self.feed(*nxt)
+            if exhausted and not self._queue and not self._flight:
+                return
             yield from self.pump()

@@ -459,6 +459,17 @@ class _DeviceSearcher:
             self.config.overlap, self.config.threads)
         return out, (redo, fut)
 
+    def search_batch(self, encoded: List[np.ndarray]
+                     ) -> List[List[Tuple[int, int]]]:
+        """One batch from launch to per-read SFS lists, host redos
+        included."""
+        out, deferred = self.collect(self.dispatch(encoded))
+        if deferred is not None:
+            redo, fut = deferred
+            for i, r in zip(redo, fut.result()):
+                out[i] = r
+        return out
+
 
 def run_search(config: Config, index: FMDIndex,
                bam: Optional[str] = None, fastx: Optional[str] = None,

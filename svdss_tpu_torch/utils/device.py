@@ -45,7 +45,7 @@ _ANCHOR_TABLES = [_P, _LL, _P] + [_I] * 5 + [_P]
 SIGNATURES = {
     "anchor": {
         "svdss_anchor_batch": _ANCHOR_TABLES + [_P] * 3 + [_I] * 5
-                              + [_P] * 9,
+                              + [_P] * 8 + [_I, _P],
         "svdss_anchor_pool": _ANCHOR_TABLES + [_P] * 3 + [_I] * 5
                              + [_P] * 7,
     },

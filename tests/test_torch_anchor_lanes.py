@@ -25,7 +25,9 @@ from svdss_tpu.ops import anchor_jax
 from svdss_tpu.ops.anchor import build_anchor_index as j_build_anchor_index
 from svdss_tpu.ops.anchor_pool import AnchorPool as JaxPool
 from svdss_tpu.ops.pingpong_jax import pack_reads as j_pack_reads
-from svdss_tpu_torch.ops.anchor_device import (WORK_FIELDS,
+from svdss_tpu_torch.ops.anchor_device import (ABL_FUNNEL, ABL_KEY,
+                                               ABL_NOEXIT, ABL_READ,
+                                               ABL_TEXT, WORK_FIELDS,
                                                batch_search_anchor_plain,
                                                default_max_rounds,
                                                from_arrays)
@@ -82,10 +84,30 @@ def quad(a, b, c, d, sel):
     return (d if sel & 1 else c) if sel & 2 else (b if sel & 1 else a)
 
 
+def nib(x, c):
+    """Nibble c & 7 of the 32-bit x (anchor.cu nib)."""
+    return (x >> (4 * (c & 7))) & 0xF
+
+
+def row_sym(P, plen, side, w8, ybase, rowid, c, ablate):
+    """Column c of the round's read row (anchor.cu row_sym): under the
+    read probe side 0's symbol c, an ACGT base moved on by nibble c & 7 of
+    the row number (mod 4)."""
+    if not ablate & ABL_READ:
+        return read_sym(P, plen, side, w8, ybase + c)
+    if not 0 <= c < SPAN:
+        return 0
+    s = read_sym(P, plen, 0, w8, c)
+    return ((s - 1 + nib(rowid, c)) & 3) + 1 if 1 <= s <= 4 else s
+
+
 def run_lane(T, P, plen, length, nwm, cap, max_rounds, budget, overlap,
-             events):
+             events, ablate=0):
     """anchor.cu run_lane, every warp step written out over its 32
-    threads; `events` gets one dict per round."""
+    threads; `events` gets one dict per round. `ablate`: the cost probes'
+    mask (anchor_device.ablate_mask); the idle rounds of noexit change
+    nothing and are not run here (the returned rounds are the lane's
+    own)."""
     k, j0 = T.k, T.j0
     w8 = 64 * (nwm + 1)
     active, fb, overflow = length >= 1, False, False
@@ -113,25 +135,30 @@ def run_lane(T, P, plen, length, nwm, cap, max_rounds, budget, overlap,
             m_r = min(max(rstart >> 6, 0), nwm - 1)
             col_a = rstart - (m_r << 6)
             ybase = m_r << 6
+            rowid = dirb * nwm + m_r
             cmp_off = col_a if is_ver else col_a + k
             ev.update(m_r=m_r, col_a=col_a)
             rs = [[0] * PER_THREAD for _ in range(WARP)]
             if not is_sub:
                 for t in range(WARP):
-                    y = ybase + cmp_off + PER_THREAD * t
-                    rs[t] = [read_sym(P, plen, dirb, w8, y + i)
-                             for i in range(PER_THREAD)]
+                    c = cmp_off + PER_THREAD * t
+                    rs[t] = [row_sym(P, plen, dirb, w8, ybase, rowid, c + i,
+                                     ablate) for i in range(PER_THREAD)]
             key_new = 0
             clean = floor_case = use_meta = to_sub_short = fb_new = False
-            if is_key:
+            if is_key and ablate & ABL_KEY:
+                key_new = col_a & ((1 << (2 * k)) - 1)
+                validm = (1 << k) - 1
+            elif is_key:
                 validm = 0
                 for t in range(k):      # the ballot and the OR-reduction
                     c = col_a + t
-                    sym = (read_sym(P, plen, dirb, w8, ybase + c)
-                           if 0 <= c < SPAN else 0)
+                    sym = (row_sym(P, plen, dirb, w8, ybase, rowid, c,
+                                   ablate) if 0 <= c < SPAN else 0)
                     if 1 <= sym <= 4:
                         validm |= 1 << t
                     key_new |= min(max(sym - 1, 0), 3) << (2 * (k - 1 - t))
+            if is_key:
                 need = (1 << min(max(mk, 0), 30)) - 1
                 clean = (validm & need) == need
                 floor_case = maxlen <= j0
@@ -190,14 +217,23 @@ def run_lane(T, P, plen, length, nwm, cap, max_rounds, budget, overlap,
                     for t in range(WARP):
                         d0, mine = PER_THREAD * t, SPAN
                         if d0 < lim:
-                            ts = text_syms(T, tstart + d0)
+                            c_t = (cmp_off if ablate & ABL_FUNNEL
+                                   else col_t) + d0
+                            if ablate & ABL_TEXT:
+                                ts = [rs[t][i] ^ nib(tr, c_t + i)
+                                      for i in range(PER_THREAD)]
+                            else:
+                                ts = text_syms(T, (tr << 6) + c_t)
+                            if ablate & ABL_FUNNEL:
+                                ts = [ts[i] ^ nib(col_t - cmp_off, c_t + i)
+                                      for i in range(PER_THREAD)]
                             for i in reversed(range(PER_THREAD)):
                                 if d0 + i < lim and rs[t][i] != ts[i]:
                                     mine = d0 + i
                         mins.append(mine)
                     f = min(min(mins), lim)      # the min-reduction
                     work[3] += f + 1 if f < lim else lim
-                work[2] += 1
+                work[2] += not ablate & ABL_TEXT
                 ext_new = ext_eff + max(f, 0)
                 cont_occ = f >= run_valid and ext_new < vcap
                 ev.update(lim=lim, f=f, run_valid=run_valid, tstart=tstart,
@@ -275,7 +311,8 @@ def run_lane(T, P, plen, length, nwm, cap, max_rounds, budget, overlap,
     return out, count, r, overflow, fb, active, work
 
 
-def mirror_batch(T, seqs, lens, cap, max_rounds, overlap=-1, budget=None):
+def mirror_batch(T, seqs, lens, cap, max_rounds, overlap=-1, budget=None,
+                 ablate=0):
     """K3 a warp per lane: the six result fields, the work counts and the
     rounds' events."""
     Q, Lp1 = seqs.shape
@@ -289,12 +326,14 @@ def mirror_batch(T, seqs, lens, cap, max_rounds, overlap=-1, budget=None):
     for q in range(Q):
         out, count, r, o, fb, act, w = run_lane(
             T, seqs[q], Lp1, int(lens[q]), (Lp1 + 63) // 64, cap, max_rounds,
-            None if budget is None else int(budget[q]), overlap, events)
+            None if budget is None else int(budget[q]), overlap, events,
+            ablate)
         for i, (a, b) in enumerate(out):
             qs[q, i], ln[q, i] = a, b
         n_sfs[q], ovf[q], inc[q] = min(count, cap), o, fb or act
         work += w
-        iters = max(iters, r)
+        # noexit: every warp runs on to max_rounds
+        iters = max(iters, max_rounds if ablate & ABL_NOEXIT else r)
     return (qs, ln, n_sfs, ovf, inc, np.int32(iters)), work, events
 
 
