@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (svdss_tpu_torch).
 
-    python3 chip_smoke.py [--seed 21] [--keep]
+    python3 chip_smoke.py [--seed 21] [--keep] [--only-giant]
 
 Needs one CUDA card, nvcc (for the kernels in svdss_tpu_torch/csrc/) and
 g++ (for the native host library in native/); both are built from the
@@ -79,7 +79,14 @@ checkout at first use. Phases, each printing one JSON line:
            without it), then "" and each probe timed on the main path's
            K3 input, alone and under noexit: ms a round of the slowest
            lane, each part's share of the round and, under noexit, ns a
-           lane-round.
+           lane-round;
+  giant    the scale harness (svdss_tpu_torch/tools/) at a reduced size:
+           giant_wide (2 x 4 Mbp, right-order-only buckets, the search
+           stage's wide engine in waves, K5), giant_fm (2 x 8 Mbp, K2 on a
+           force-wide table) and repeat_wide (an 8 Mbp repeat-rich genome
+           whose heavy k-mers park lanes), each through its stages and
+           checks: every device-resolved read equals the host oracle
+           (``--only-giant`` runs the env and giant phases alone).
 
 The env line carries each kernel's registers and spills (nvcc's
 ``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
@@ -2586,6 +2593,61 @@ def phase_ablate(timing: dict, spy: Spy, keep: dict) -> dict:
     return info
 
 
+# ----------------------------------------------------------------- giant
+
+# the scale tools at a reduced size, through the same stages and checks as
+# at genome scale: giant_wide on right-order-only buckets (its GRCh38
+# format) through the search stage's wide engine, giant_fm on a force-wide
+# table, repeat_wide with heavy k-mers that park lanes
+GIANT_RUNS = (
+    ("giant_wide", "anchor_wide",
+     ["--chrom-mbp", "4", "--n-chrom", "2", "--reads", "256", "--qs",
+      "128,256", "--verify", "256", "--sort", "right", "--engine", "anchor",
+      "--workers", "4"]),
+    ("giant_fm", "pingpong_fm",
+     ["--chrom-mbp", "8", "--n-chrom", "2", "--reads", "256", "--oracle",
+      "32", "--force-wide", "--workers", "4"]),
+    ("repeat_wide", "anchor_wide",
+     ["--fwd-mbp", "8", "--cmax", "254", "--reads", "256", "--verify",
+      "256", "--workers", "4"]),
+)
+
+
+def phase_giant(wd: str) -> dict:
+    """The three scale tools (svdss_tpu_torch/tools/) on the card at a
+    reduced size, each with the kernel launch counts set to 0 just before
+    it and read just after: every device-resolved read must equal the
+    tool's host oracle, and each tool must launch its kernel."""
+    import importlib
+    from svdss_tpu_torch.ops import anchor_wide_device, pingpong
+    counters = {"anchor_wide": anchor_wide_device, "pingpong_fm": pingpong}
+    t0 = time.time()
+    runs, failed = {}, []
+    for name, kernel, argv in GIANT_RUNS:
+        mod = importlib.import_module(f"svdss_tpu_torch.tools.{name}")
+        for m in counters.values():
+            m.launches = 0
+        t1 = time.time()
+        rep = mod.main(argv + ["--workdir", os.path.join(wd, "giant", name)],
+                       log=lambda msg: sys.stderr.write(msg + "\n"))
+        launches = {k: m.launches for k, m in counters.items()}
+        keys = ("mismatches", "oracle_mismatches", "oracle_verified_reads",
+                "oracle_checked", "device_resolved_reads", "fallback_reads",
+                "resolve_waves", "resolved_phases", "engine", "wide",
+                "wide_by_size", "k5", "k2", "configs", "stages", "ok")
+        runs[name] = {"seconds": time.time() - t1, "launches": launches,
+                      **{k: rep[k] for k in keys if k in rep}}
+        if not rep.get("ok") or launches[kernel] < 1:
+            failed.append(name)
+    info = {"phase": "giant", "seconds": time.time() - t0,
+            "gpu": nvidia_smi(), "runs": runs, "failed": failed}
+    emit(info)
+    if failed:
+        raise RuntimeError(f"giant phase: {failed} disagree with their "
+                           "oracles or launched no kernel")
+    return info
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -2611,6 +2673,8 @@ def main() -> int:
                          "pins 21)")
     ap.add_argument("--keep", action="store_true",
                     help="keep the work directory (build/chip_smoke)")
+    ap.add_argument("--only-giant", action="store_true",
+                    help="the env and giant phases alone (no result line)")
     ap.add_argument("--shard-worker", metavar="OUT_JSON",
                     help=argparse.SUPPRESS)
     ap.add_argument("worker_argv", nargs="*", help=argparse.SUPPRESS)
@@ -2629,6 +2693,9 @@ def main() -> int:
     t0 = time.time()
     try:
         phase_env()
+        if args.only_giant:
+            phase_giant(wd)
+            return 0
         keep = {}
         errs = phase_kernels(args.seed, keep)
         run = phase_run(wd, args)
@@ -2636,6 +2703,7 @@ def main() -> int:
         phase_shards(wd, run)
         timing = phase_timing(run, args.seed)
         phase_ablate(timing, run["spies"]["anchor_batch"], keep)
+        phase_giant(wd)
     finally:
         if not args.keep:
             shutil.rmtree(wd, ignore_errors=True)

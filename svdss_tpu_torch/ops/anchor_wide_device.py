@@ -128,37 +128,102 @@ class WideParams:
     ct16: bool = True             # counts 8|8 two keys a word, else 16|16
 
 
-def pack_text2(text: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+PACK_ROWS = 1 << 12   # span rows packed at a time by pack_text2
+
+
+def pack_text2(text: np.ndarray, rows: int = PACK_ROWS
+               ) -> Tuple[np.ndarray, np.ndarray]:
     """nt6 uint8 [n] -> ([n//256 + 1, 32] int32 2-bit span rows, badrow
     bits as int32). Symbol value = nt6 - 1 for ACGT; any other symbol, and
     any position past the text, is 0 in the rows and flags every row that
-    covers it."""
+    covers it.
+
+    Row m is the 2-bit words of the 256-symbol blocks m and m + 1, so the
+    rows are packed `rows` at a time from their blocks plus the next one
+    (a 256-symbol overlap), in uint8 and uint32 only: beside the output
+    (0.5 B a symbol) a chunk's transients stay ~15 MiB at any n."""
     n = len(text)
     nrow = n // STRIDE2 + 1
-    sym = np.zeros((nrow + 1) * STRIDE2, dtype=np.uint8)
-    sym[:n] = text
-    bad_at = (sym < 1) | (sym > 4)
-    bad_at[n:] = True
-    two = np.where(bad_at, 0, sym.astype(np.int64) - 1).astype(np.uint32)
-    spans = np.lib.stride_tricks.as_strided(
-        two, shape=(nrow, SPAN2), strides=(two.strides[0] * STRIDE2,
-                                           two.strides[0]))
+    words = np.empty((nrow, SPAN2_W), dtype=np.uint32)
+    rowbad = np.empty(nrow, dtype=bool)
     shifts = np.arange(16, dtype=np.uint32) * 2
-    words = (spans.reshape(nrow, SPAN2_W, 16)
-             << shifts[None, None, :]).sum(axis=2, dtype=np.uint32)
-    badspan = np.lib.stride_tricks.as_strided(
-        bad_at, shape=(nrow, SPAN2), strides=(bad_at.strides[0] * STRIDE2,
-                                              bad_at.strides[0]))
-    idx = np.nonzero(badspan.any(axis=1))[0]
-    bw = np.zeros((nrow + 31) // 32, dtype=np.uint32)
-    np.bitwise_or.at(bw, idx >> 5, np.uint32(1) << (idx & 31).astype(
-        np.uint32))
+    for a in range(0, nrow, rows):
+        b = min(a + rows, nrow)
+        lo, hi = a * STRIDE2, (b + 1) * STRIDE2   # blocks a .. b
+        sym = np.zeros(hi - lo, dtype=np.uint8)
+        got = text[lo:min(hi, n)]
+        sym[:len(got)] = got
+        bad = (sym < 1) | (sym > 4)
+        bad[len(got):] = True
+        sym -= 1
+        sym[bad] = 0
+        blk = (sym.reshape(-1, 16).astype(np.uint32) << shifts).sum(
+            axis=1, dtype=np.uint32).reshape(b - a + 1, 16)
+        words[a:b, :16] = blk[:-1]
+        words[a:b, 16:] = blk[1:]
+        blkbad = bad.reshape(b - a + 1, STRIDE2).any(axis=1)
+        rowbad[a:b] = blkbad[:-1] | blkbad[1:]
+    bits = np.packbits(rowbad, bitorder="little")
+    bw = np.zeros(((nrow + 31) // 32) * 4, dtype=np.uint8)
+    bw[:len(bits)] = bits
     return words.view(np.int32), bw.view(np.int32)
 
 
-def _as_i32(a: np.ndarray) -> np.ndarray:
-    a = np.ascontiguousarray(a)
-    return a.view(np.int32) if a.dtype.itemsize == 4 else a.astype(np.int32)
+UPLOAD_WORDS = 1 << 26   # 32-bit words a host-to-device copy takes at a time
+CT_KEYS = 1 << 24        # keys of the fused count table made at a time
+
+
+def _put_words(a: np.ndarray, dev: torch.device, n_words: int = 0
+               ) -> torch.Tensor:
+    """The raw bytes of a contiguous array as a 1-D int32 tensor on `dev`
+    (so uint32 entries keep their bit patterns, and packed uint8 / uint16
+    entries are read four / two a word), zero-filled to `n_words` words or
+    to the last whole word. Copied a chunk at a time from a view of `a`: no
+    host copy of `a` is made, whatever its size."""
+    raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    n_words = max(n_words, -(-len(raw) // 4))
+    out = torch.zeros(n_words, dtype=torch.int32, device=dev)
+    step = 4 * UPLOAD_WORDS
+    for lo in range(0, len(raw), step):
+        c = raw[lo:lo + step]
+        if len(c) % 4:
+            c = np.concatenate([c, np.zeros(-len(c) % 4, dtype=np.uint8)])
+        c = c.view(np.int32)
+        out[lo // 4:lo // 4 + len(c)] = torch.from_numpy(
+            c if c.flags.writeable else c.copy())
+    return out
+
+
+def _put_counts(cnts: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """uint8 / uint16 forward counts as an int32 tensor on `dev`, widened a
+    chunk at a time."""
+    out = torch.empty(len(cnts), dtype=torch.int32, device=dev)
+    for lo in range(0, len(cnts), UPLOAD_WORDS):
+        out[lo:lo + UPLOAD_WORDS] = torch.from_numpy(
+            cnts[lo:lo + UPLOAD_WORDS].astype(np.int32))
+    return out
+
+
+def fused_counts(cnts: np.ndarray, k: int, ct16: bool,
+                 dev: torch.device) -> torch.Tensor:
+    """The fused count table (forward count | two-strand total a key,
+    saturated; 8|8 two keys a word when ct16, else 16|16), made on `dev`
+    from the uploaded counts CT_KEYS keys at a time."""
+    cf = _put_counts(cnts, dev)
+    nk = 1 << (2 * k)
+    ct = torch.empty(nk // 2 if ct16 else nk, dtype=torch.int32, device=dev)
+    for lo in range(0, nk, CT_KEYS):
+        hi = min(lo + CT_KEYS, nk)
+        keys = torch.arange(lo, hi, device=dev, dtype=torch.int64)
+        c = cf[lo:hi].long()
+        tot = c + cf[_rc_key(keys, k)].long()
+        if ct16:
+            ctw = c.clamp(max=255) | (tot.clamp(max=255) << 8)
+            ct[lo // 2:hi // 2] = _to_i32(ctw[0::2] | (ctw[1::2] << 16))
+        else:
+            ct[lo:hi] = _to_i32(c.clamp(max=65535)
+                                | (tot.clamp(max=65535) << 16))
+    return ct
 
 
 def build_device_anchor_wide(widx: AnchorIndexWide, device=None
@@ -166,57 +231,40 @@ def build_device_anchor_wide(widx: AnchorIndexWide, device=None
     """The device tables of host wide tables on `device` (cuda unless asked
     otherwise), with the JAX package's choices: the fused count format
     (8|8 when cmax <= 254, else 16|16), uint8 or uint16 lperm, sorted or
-    right-order-only buckets."""
+    right-order-only buckets. Every table goes up a chunk at a time from
+    the host arrays themselves, so at genome scale (a 3.1G-entry poslist)
+    the host holds no second copy of any of them."""
     dev = resolve_device(device)
     k, j0 = widx.k, widx.j0
     pl = widx.poslist
-    if len(pl) == 0:
-        pl = np.zeros(2, dtype=np.uint32)
-    if len(pl) % 2:
-        pl = np.concatenate([pl, np.zeros(1, dtype=pl.dtype)])
+    if pl.dtype != np.uint32:
+        raise TypeError("the wide poslist must be uint32")
     bm_parts, bm_bases, row = [], [], 0
     for j in range(j0 + 1, k):
-        bm = widx.levels[j]
+        bm = np.asarray(widx.levels[j], dtype=np.uint32)
         if len(bm) % 2:
             bm = np.concatenate([bm, np.zeros(1, dtype=bm.dtype)])
-        bm_parts.append(_as_i32(bm).reshape(-1, 2))
+        bm_parts.append(bm)
         bm_bases.append(row)
-        row += len(bm_parts[-1])
+        row += len(bm) // 2
     bms = (np.concatenate(bm_parts) if bm_parts
-           else np.zeros((1, 2), dtype=np.int32))
+           else np.zeros(2, dtype=np.uint32))
     text2, badrow = pack_text2(widx.text)
     sorted_b = widx.leftidx is not None or widx.right_sorted
     right_only = sorted_b and widx.leftidx is None
     l16 = widx.leftidx is not None and widx.leftidx.dtype == np.uint16
-    lperm = np.zeros(1, dtype=np.int32)
-    if widx.leftidx is not None and len(widx.leftidx):
-        li = widx.leftidx
-        pad = (-len(li)) % (2 if l16 else 4)
-        if pad:
-            li = np.concatenate([li, np.zeros(pad, dtype=li.dtype)])
-        lperm = np.ascontiguousarray(li).view(np.int32)
-    # fused count table: forward count | two-strand total per key
-    # (saturated), so the KEY round reads one word for both; computed on
-    # `dev` from the uploaded counts (at k = 14, 4^14 keys)
-    nk = 1 << (2 * k)
-    cf = torch.from_numpy(widx.cnts.astype(np.int32)).to(dev).long()
-    tot = cf + cf[_rc_key(torch.arange(nk, device=dev), k)]
+    has_lperm = widx.leftidx is not None and len(widx.leftidx)
     ct16 = widx.cmax <= 254
-    if ct16:
-        ctw = cf.clamp(max=255) | (tot.clamp(max=255) << 8)
-        ct = _to_i32(ctw[0::2] | (ctw[1::2] << 16))
-        del ctw
-    else:
-        ct = _to_i32(cf.clamp(max=65535) | (tot.clamp(max=65535) << 16))
-    del cf, tot
-
-    def put(a):
-        a = _as_i32(a)
-        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
     index = DeviceAnchorWide(
-        ct=ct, aux=put(widx.aux.astype(np.uint32)),
-        pospairs=put(pl.astype(np.uint32).reshape(-1, 2)), bms=put(bms),
-        text2=put(text2), badrow=put(badrow), lperm=put(lperm))
+        ct=fused_counts(widx.cnts, k, ct16, dev),
+        aux=_put_words(np.asarray(widx.aux, dtype=np.uint32), dev),
+        pospairs=_put_words(pl, dev, 2 * -(-max(len(pl), 1) // 2))
+        .reshape(-1, 2),
+        bms=_put_words(bms, dev).reshape(-1, 2),
+        text2=_put_words(text2, dev).reshape(-1, SPAN2_W),
+        badrow=_put_words(badrow, dev),
+        lperm=_put_words(widx.leftidx, dev) if has_lperm
+        else torch.zeros(1, dtype=torch.int32, device=dev))
     params = WideParams(k=k, j0=j0, cmax=int(widx.cmax), n=widx.n,
                         bm_bases=tuple(bm_bases), sorted_b=sorted_b,
                         l16=l16, right_only=right_only, ct16=ct16)

@@ -349,6 +349,9 @@ class _DeviceSearcher:
         self.smoothed_input = False
         self.fallbacks = 0
         self._redo_exec = None
+        # the exact host engine of the redos: (index, reads, overlap,
+        # threads) -> SFS lists
+        self.host_search = host_search_batch
 
     def lanes_for(self, L: int) -> int:
         """Per-bucket lane count: the lane budget is symbol-denominated
@@ -455,7 +458,7 @@ class _DeviceSearcher:
         if not redo:
             return out, None
         fut = self._redo_pool().submit(
-            host_search_batch, self.index, [encoded[i] for i in redo],
+            self.host_search, self.index, [encoded[i] for i in redo],
             self.config.overlap, self.config.threads)
         return out, (redo, fut)
 
