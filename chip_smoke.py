@@ -86,7 +86,15 @@ checkout at first use. Phases, each printing one JSON line:
            force-wide table) and repeat_wide (an 8 Mbp repeat-rich genome
            whose heavy k-mers park lanes), each through its stages and
            checks: every device-resolved read equals the host oracle
-           (``--only-giant`` runs the env and giant phases alone).
+           (``--only-giant`` runs the env and giant phases alone);
+  chr_scale the whole-pipeline harness (svdss_tpu_torch/tools/chr_scale.py)
+           at a reduced size: 2 x 4 Mbp at 30x with 16 planted SVs, the
+           reads simulated and written a chromosome at a time, ``cli run``
+           on the card as a child process (the default engine, at 16M
+           symbols the FM engine), then ``run --no-device`` on hard links
+           of its index and smoothed BAM: every planted SV recovered
+           (F1 1.0) and both runs' outputs identical; each run's launch
+           counts from 0 in its own process.
 
 The env line carries each kernel's registers and spills (nvcc's
 ``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
@@ -2648,6 +2656,70 @@ def phase_giant(wd: str) -> dict:
     return info
 
 
+# ------------------------------------------------------------- chr_scale
+
+# the whole-pipeline harness at a reduced size: two chromosomes (the
+# streamed, sliced BAM), the default engine on the card, the host check
+CHR_SCALE_ARGV = ["--genome-mbp", "8", "--n-chrom", "2", "--n-sv", "16",
+                  "--check-host"]
+
+
+def count_worker(out_path: str, argv: list) -> int:
+    """One `cli` command in a process of its own with every kernel's
+    launch count from 0; appends the counts to out_path as a JSON line."""
+    from svdss_tpu_torch import cli
+    mods = {k: importlib.import_module(m) for k, m in KERNEL_MODULES.items()}
+    for mod in mods.values():
+        mod.launches = 0
+    rc = cli.main(argv)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    with open(out_path, "a") as fh:
+        fh.write(json.dumps({"argv": argv, "rc": rc, "launches": {
+            k: mod.launches for k, mod in mods.items()}}) + "\n")
+    return rc
+
+
+def phase_chr_scale(wd: str) -> dict:
+    """svdss_tpu_torch/tools/chr_scale.py at CHR_SCALE_ARGV, its two `cli
+    run`s in count_worker processes: the device run must launch K2 and
+    K1 and no other kernel, the host run none; every planted SV recovered
+    and the two runs' outputs identical."""
+    from svdss_tpu_torch.tools import chr_scale
+    counts = os.path.join(wd, "chr_scale_launches.jsonl")
+    cli_cmd = chr_scale.CLI
+    chr_scale.CLI = [sys.executable, os.path.abspath(__file__),
+                     "--count-worker", counts, "--"]
+    t0 = time.time()
+    try:
+        rep = chr_scale.main(
+            CHR_SCALE_ARGV + ["--threads", str(os.cpu_count() or 4),
+                              "--workdir", os.path.join(wd, "chr_scale")],
+            log=lambda msg: sys.stderr.write(msg + "\n"))
+    finally:
+        chr_scale.CLI = cli_cmd
+    runs = [json.loads(line) for line in open(counts)] \
+        if os.path.exists(counts) else []
+    on_path = ("pingpong_fm", "wavefront_dp")
+    checks = {
+        "ok": bool(rep.get("ok")), "f1": rep.get("f1") == 1.0,
+        "host_identical": rep.get("host_identical") is True,
+        "two_runs": len(runs) == 2,
+        "device_run_launches": len(runs) == 2 and all(
+            (runs[0]["launches"][k] >= 1) == (k in on_path)
+            for k in KERNEL_MODULES),
+        "host_run_launches_none": len(runs) == 2 and not any(
+            runs[1]["launches"].values())}
+    info = {"phase": "chr_scale", "seconds": time.time() - t0,
+            "argv": CHR_SCALE_ARGV, "runs": runs,
+            **{k: rep[k] for k in chr_scale.SUMMARY if k in rep},
+            "checks": checks}
+    emit(info)
+    if not all(checks.values()):
+        raise RuntimeError(f"chr_scale phase checks failed: {checks}")
+    return info
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -2677,6 +2749,8 @@ def main() -> int:
                     help="the env and giant phases alone (no result line)")
     ap.add_argument("--shard-worker", metavar="OUT_JSON",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--count-worker", metavar="OUT_JSONL",
+                    help=argparse.SUPPRESS)
     ap.add_argument("worker_argv", nargs="*", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2686,6 +2760,8 @@ def main() -> int:
     import svdss_tpu_torch  # noqa: F401  (fails outside a checkout)
     if args.shard_worker:
         return shard_worker(args.shard_worker, args.worker_argv)
+    if args.count_worker:
+        return count_worker(args.count_worker, args.worker_argv)
 
     wd = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(wd, ignore_errors=True)
@@ -2704,6 +2780,7 @@ def main() -> int:
         timing = phase_timing(run, args.seed)
         phase_ablate(timing, run["spies"]["anchor_batch"], keep)
         phase_giant(wd)
+        phase_chr_scale(wd)
     finally:
         if not args.keep:
             shutil.rmtree(wd, ignore_errors=True)

@@ -348,6 +348,7 @@ class _DeviceSearcher:
         self.cap = config.max_sfs_per_read
         self.smoothed_input = False
         self.fallbacks = 0
+        self.device_reads = 0
         self._redo_exec = None
         # the exact host engine of the redos: (index, reads, overlap,
         # threads) -> SFS lists
@@ -430,14 +431,16 @@ class _DeviceSearcher:
             self._redo_exec.shutdown()
             self._redo_exec = None
 
-    def collect(self, handle):
+    def collect(self, handle, defer_redo: bool = False):
         """Materialize a dispatched batch's results (blocks on the device).
 
-        Returns (results, deferred): redo slots of results are None and
-        deferred is None or (redo_indices, future) to patch in later."""
+        defer_redo=False: host redos run inline and the return value is
+        the complete per-read result list. True: returns (results,
+        deferred) where redo slots are None and deferred is None or
+        (redo_indices, future) to patch in later."""
         encoded, res = handle
         if res is None:
-            return [], None
+            return ([], None) if defer_redo else []
         if isinstance(res, WideWaveRun):
             res = res.finish()
         n_sfs = res.n_sfs.cpu().numpy()
@@ -455,23 +458,25 @@ class _DeviceSearcher:
             else:
                 k = int(n_sfs[i])
                 out.append(list(zip(qs[i, :k].tolist(), ln[i, :k].tolist())))
+        self.device_reads += len(encoded)
         if not redo:
-            return out, None
-        fut = self._redo_pool().submit(
-            self.host_search, self.index, [encoded[i] for i in redo],
-            self.config.overlap, self.config.threads)
-        return out, (redo, fut)
+            return (out, None) if defer_redo else out
+        encs = [encoded[i] for i in redo]
+        if defer_redo:
+            fut = self._redo_pool().submit(
+                self.host_search, self.index, encs, self.config.overlap,
+                self.config.threads)
+            return out, (redo, fut)
+        for i, r in zip(redo, self.host_search(
+                self.index, encs, self.config.overlap, self.config.threads)):
+            out[i] = r
+        return out
 
     def search_batch(self, encoded: List[np.ndarray]
                      ) -> List[List[Tuple[int, int]]]:
         """One batch from launch to per-read SFS lists, host redos
         included."""
-        out, deferred = self.collect(self.dispatch(encoded))
-        if deferred is not None:
-            redo, fut = deferred
-            for i, r in zip(redo, fut.result()):
-                out[i] = r
-        return out
+        return self.collect(self.dispatch(encoded))
 
 
 def run_search(config: Config, index: FMDIndex,
@@ -593,6 +598,7 @@ def run_search(config: Config, index: FMDIndex,
                 else:
                     results_store[tag] = pairs
                     del enc_store[tag]
+                searcher.device_reads += 1
             if len(redo) >= 256:
                 flush_redo()
             emit_ready()
@@ -631,7 +637,7 @@ def run_search(config: Config, index: FMDIndex,
         def drain(keep: int = 0) -> None:
             while len(pending) > keep:
                 bucket, batch, handle = pending.pop(0)
-                res, d = searcher.collect(handle)
+                res, d = searcher.collect(handle, defer_redo=True)
                 base = flushed.get(bucket, 0)
                 for k, r in enumerate(res):
                     results_store[(bucket, base + k)] = (batch[k][0],

@@ -29,6 +29,9 @@ SCALAR_OPS_PER_S = 67e12
 OPS_PER_RANK_STEP = 32 * 6 + 8
 OPS_PER_ANCHOR_ROUND = 60
 OPS_PER_COMPARED_SYMBOL = 4
+# two-strand symbols from which `run` takes the wide anchor tables
+# (cli._wide_anchor)
+WIDE_BY_SIZE = 1_200_000_000
 
 PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

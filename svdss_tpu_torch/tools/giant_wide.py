@@ -251,7 +251,7 @@ def device_stage(args, widx, reads, lens, dev, rep, log) -> dict:
                 t0 = time.time()
                 handle = searcher.dispatch(chunk)
                 run = handle[1]
-                out, deferred = searcher.collect(handle)
+                out, deferred = searcher.collect(handle, defer_redo=True)
                 cfg["device_s"] += time.time() - t0
                 cfg["waves"] += getattr(run, "n_waves", 0)
                 cfg["parked_phases"] += getattr(run, "parked_lanes", 0)

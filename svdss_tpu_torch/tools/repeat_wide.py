@@ -49,7 +49,6 @@ from ..ops.pingpong import PingPongResult
 from ..utils.device import resolve_device
 
 MODULE = "svdss_tpu_torch.tools.repeat_wide"
-WIDE_BY_SIZE = 1_200_000_000   # cli._wide_anchor: two-strand symbols
 
 
 def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -157,7 +156,7 @@ def main(argv: Optional[List[str]] = None, log=print) -> dict:
                 json.dump(rng.bit_generator.state, f)
             wd.stamp("genome.npy")
     rep["two_strand_symbols"] = 2 * (len(text) + 1)
-    rep["wide_by_size"] = rep["two_strand_symbols"] >= WIDE_BY_SIZE
+    rep["wide_by_size"] = rep["two_strand_symbols"] >= C.WIDE_BY_SIZE
     if wd.ready("tables", t_s):
         widx = C.load_wide(wd.path("tables"), text)
     else:
