@@ -94,7 +94,16 @@ checkout at first use. Phases, each printing one JSON line:
            symbols the FM engine), then ``run --no-device`` on hard links
            of its index and smoothed BAM: every planted SV recovered
            (F1 1.0) and both runs' outputs identical; each run's launch
-           counts from 0 in its own process.
+           counts from 0 in its own process;
+  bench    the port's search-throughput tool (svdss_tpu_torch/tools/
+           bench.py) in this process at its --smoke size (1 Mbp, 256 x 2
+           kb reads: exit 0, parity smoke ok), then every one of those
+           reads through K3, K4 (64 lanes, two chunks), K2, K2's jump
+           mode (the 6-mer table built by K6) and the K5 waves over a
+           4 Mbp slice against the host engine (K5: the wide oracle), and
+           64 reads of 30 kb over the same genome through K3 and K2
+           against the host engine; launch counts from 0, and each of
+           K2-K6 must launch.
 
 The env line carries each kernel's registers and spills (nvcc's
 ``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
@@ -121,32 +130,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate, and the scalar
-# (non-tensor-core) 32-bit rate. The kernels do int32 work; the data sheet
-# gives no int32 rate, and the fp32 one is at least as high, so bounds
-# computed with it are lower bounds.
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-# integer operations the work needs, counted from the recurrences:
-# one rank step is 32 packed words x (xor, add, and-not, mask, popcount,
-# accumulate) plus ~8 for the interval update; one DP cell is ~40 (four
-# gap states at 4 each, the substitution at 3, the four-way max with
-# its source at 12, the band mask at 3, the trace bits at 8, the score
-# capture)
-OPS_PER_RANK_STEP = 32 * 6 + 8
+# integer operations the work needs, counted from the recurrences (the
+# other kernels' counts, the card's peak rates and the bound rule are in
+# svdss_tpu_torch/tools/common.py): one DP cell is ~40 (four gap states
+# at 4 each, the substitution at 3, the four-way max with its source at
+# 12, the band mask at 3, the trace bits at 8, the score capture)
 OPS_PER_DP_CELL = 40
-# an anchor round's state machine outside its loops (mode decode, row and
-# column offsets, the table-row dispatch, resolution, restart and state
-# updates: ~60 integer operations), and per symbol a verify round compares
-# two symbol fetches, the compare and the loop test
-OPS_PER_ANCHOR_ROUND = 60
-OPS_PER_COMPARED_SYMBOL = 4
-# a jump-table parent: at each of its two endpoints, 32 packed words x 5
-# symbols x (xor, add, and-not, mask, popcount, accumulate); then 4
-# children of ~8 each. A jump-mode lookup: the key, ~4 a symbol, and the
-# row's tests
-OPS_PER_JUMP_PARENT = 2 * 32 * 5 * 6 + 4 * 8
-OPS_PER_KEY_SYMBOL = 4
 # the instructions kernel K6 issues for a parent of each kind, as its
 # source note counts them (the SASS of jump_level_kernel for sm_90a, path
 # by path): absent (sz 0), both endpoints in one fused row, in two rows;
@@ -2064,12 +2053,6 @@ def phase_shards(wd: str, run: dict) -> dict:
 
 # --------------------------------------------------------------- timing
 
-def bound(nbytes: float, ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def live_lanes(seqs, lens):
     """The lanes of a search batch that hold reads: the search stage fills
     a batch up to its lane count with one-symbol padding lanes, whose
@@ -2082,6 +2065,7 @@ def time_pingpong(spy: Spy, index=None) -> dict:
     """K2 on the FM run's largest launch input; with `index`, on that table
     instead (the wide mode), and then also against narrow K2's output."""
     from svdss_tpu_torch.ops import pingpong
+    from svdss_tpu_torch.tools.common import bound_ms, fm_bytes_ops
     _, (narrow, seqs, lens), kw = spy.best
     index = narrow if index is None else index
     Q, Lp1 = seqs.shape
@@ -2109,14 +2093,11 @@ def time_pingpong(spy: Spy, index=None) -> dict:
             [getattr(got, f) for f in PP_FIELDS],
             [getattr(want, f) for f in PP_FIELDS])
         err = max(err, vs_narrow["vs_narrow_max_abs_err"])
-    # bytes: each live lane's symbols and its sentinel once, its length
-    # once, the rows the walk touches once (never more than the whole
-    # table), the emissions written (8 B each) and the per-lane scalars
+    # the live lanes' work (tools/common.py fm_bytes_ops)
     table = index.fused.numel() * 4
     read_bytes = int((llens.long() + 1).sum())
-    nbytes = (read_bytes + 4 * len(llens) + min(table, steps * 192)
-              + 8 * int(live.n_sfs.sum()) + 6 * len(llens) + 4)
-    bms, by = bound(nbytes, steps * OPS_PER_RANK_STEP)
+    nbytes, ops = fm_bytes_ops(index, llens, steps, live.n_sfs)
+    bms, by = bound_ms(nbytes, ops)
     iters = int(got.iters)
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap}",
             "wide": index.wide, "limb_bits": index.limb_bits,
@@ -2136,33 +2117,20 @@ def time_jump_level(index, k: int) -> dict:
     window than the other kernels' 5 launches, whose ~2 ms moved by a
     quarter between calls."""
     from svdss_tpu_torch.ops import fmd
+    from svdss_tpu_torch.tools.common import (bound_ms, jump_bytes_ops,
+                                              jump_table_work)
     got = fmd.build_jump_table(index, k)
     ms = cuda_ms(lambda: fmd.build_jump_table(index, k), 50)
     holder = {}
     plain_ms = once_ms(lambda: holder.setdefault(
         "r", fmd.build_jump_table_plain(index, k)))
     err = max_abs_diff([got], [holder["r"]])
-    # the rows each level reads: at lo = x0 and hi = x0 + sz of its parents
-    # (position 0 for an absent one)
+    # the rows each level reads and its parents by kind (tools/common.py)
     nblk = index.fused.shape[0]
-    touched = torch.zeros(nblk, dtype=torch.bool, device=index.device)
-    rows, parents = fmd.level_one(index), 0
-    kinds = dict.fromkeys(JUMP_PARENT_INSNS, 0)
-    for _ in range(1, k):
-        live = rows[:, 2] > 0
-        lo = torch.where(live, rows[:, 0], 0)
-        hi = lo + torch.where(live, rows[:, 2], 0)
-        touched[(lo >> 7).long()] = True
-        touched[(hi >> 7).long()] = True
-        one = live & ((lo >> 7) == (hi >> 7))
-        kinds["absent"] += int((~live).sum())
-        kinds["one_row"] += int(one.sum())
-        kinds["two_rows"] += int((live & ~one).sum())
-        parents += rows.shape[0]
-        rows = fmd.jump_level_plain(index, rows)
-    n_touched = int(touched.sum())
-    nbytes = 192 * n_touched + 4 * 8 + 16 * 4 ** k
-    bms, by = bound(nbytes, parents * OPS_PER_JUMP_PARENT)
+    n_touched, kinds = jump_table_work(index, k)
+    parents = sum(kinds.values())
+    nbytes, ops = jump_bytes_ops(index, k, n_touched, parents)
+    bms, by = bound_ms(nbytes, ops)
     # the instructions the kernel issues for these parents (its note's
     # count), and the time they take at Hopper's integer issue rates
     insns = sum(n * JUMP_PARENT_INSNS[kd] for kd, n in kinds.items())
@@ -2171,7 +2139,7 @@ def time_jump_level(index, k: int) -> dict:
             "launches": k - 1, "parents": parents, "parent_kinds": kinds,
             "present": int((got[:, 2] > 0).sum()),
             "rows_touched": n_touched, "bound_bytes": nbytes,
-            "bound_ops": parents * OPS_PER_JUMP_PARENT,
+            "bound_ops": ops,
             "insns_per_parent": insns / parents,
             "issue_ms": ((insns - popc) / INT_LANES_PER_S
                          + popc / POPC_LANES_PER_S) * 1e3,
@@ -2184,6 +2152,7 @@ def time_pingpong_jump(spy: Spy, table, k: int) -> dict:
     table of the run's index: its time, its plain version's, and its rank
     steps beside those of the same reads without jumps."""
     from svdss_tpu_torch.ops import pingpong
+    from svdss_tpu_torch.tools.common import bound_ms, fm_bytes_ops
     _, (index, seqs, lens), kw = spy.best
     kw = dict(kw, jump_table=table, jump_k=k)
     Q, Lp1 = seqs.shape
@@ -2213,15 +2182,11 @@ def time_pingpong_jump(spy: Spy, table, k: int) -> dict:
     vs_nojump = max_abs_diff(
         [live.qs[done], live.length[done], live.n_sfs[done]],
         [nojump.qs[done], nojump.length[done], nojump.n_sfs[done]])
-    # bytes as for K2 without jumps, plus the table rows read (16 B each,
-    # never more than the table); operations as for K2 plus the keys
-    fused = index.fused.numel() * 4
-    read_bytes = int((llens.long() + 1).sum())
-    nbytes = (read_bytes + 4 * len(llens) + min(fused, steps * 192)
-              + min(table.numel() * 4, jump_rows * 16)
-              + 8 * int(live.n_sfs.sum()) + 6 * len(llens) + 4)
-    bms, by = bound(nbytes, steps * OPS_PER_RANK_STEP
-                    + jump_rows * (k * OPS_PER_KEY_SYMBOL + 8))
+    # the live lanes' work with the table rows read (tools/common.py
+    # fm_bytes_ops)
+    nbytes, ops = fm_bytes_ops(index, llens, steps, live.n_sfs, table,
+                               jump_rows, k)
+    bms, by = bound_ms(nbytes, ops)
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap} k={k}",
             "rank_steps": steps,
             "rank_steps_without_jumps": int(plain_work.item()),
@@ -2238,6 +2203,7 @@ def time_wavefront_at(args, lq: int, lt: int, p) -> dict:
     """K1 and its plain version on one input, with the µs a diagonal of
     the kernel and how many SMs its blocks (one a pair) keep busy."""
     from svdss_tpu_torch.ops import align_dp
+    from svdss_tpu_torch.tools.common import bound_ms
     q, t, td, ti = args
     B = q.shape[0]
     W, D = lq + 1, lq + lt + 1
@@ -2248,7 +2214,7 @@ def time_wavefront_at(args, lq: int, lt: int, p) -> dict:
         "r", align_dp.wavefront_plain(q, t, td, ti, lq, lt, p)))
     err = max_abs_diff(got, holder["r"])
     nbytes = 4 * B * (lq + lt) + 8 * B + B * D * W + 4 * B
-    bms, by = bound(nbytes, B * (D - 1) * W * OPS_PER_DP_CELL)
+    bms, by = bound_ms(nbytes, B * (D - 1) * W * OPS_PER_DP_CELL)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return {"shape": f"B={B} lq={lq} lt={lt}", "ms": ms,
             "us_per_diagonal": ms * 1e3 / (D - 1),
@@ -2277,24 +2243,9 @@ def time_wavefront(spy: Spy, rng) -> dict:
     return out
 
 
-def anchor_bound(index, lens, work, n_sfs, scalars: int) -> tuple:
-    """(bytes, ops) the anchor work of the reads `lens` needs: each read's
-    symbols once, the lengths once, the table rows (16 B) and text rows
-    (64 B) its rounds touched (each capped at its table), the emissions
-    written (8 B each; the zeroed rest of each [cap] row is left out,
-    nothing reads it) and `scalars` bytes of per-read results; the
-    operations of its rounds and compared symbols."""
-    rounds, rows, text_rows, syms = work
-    nbytes = (int((lens.long() + 1).sum()) + 4 * lens.numel()
-              + min(index.small.numel() * 4, rows * 16)
-              + min(index.text_words.numel() * 4, text_rows * 64)
-              + 8 * int(n_sfs.sum()) + scalars)
-    return nbytes, (rounds * OPS_PER_ANCHOR_ROUND
-                    + syms * OPS_PER_COMPARED_SYMBOL)
-
-
 def time_anchor_batch(spy: Spy) -> dict:
     from svdss_tpu_torch.ops import anchor_device
+    from svdss_tpu_torch.tools.common import anchor_bytes_ops, bound_ms
     _, (index, params, seqs, lens), kw = spy.best
     Q, Lp1 = seqs.shape
     cap = kw["cap"]
@@ -2318,9 +2269,9 @@ def time_anchor_batch(spy: Spy) -> dict:
     err = max_abs_diff([getattr(got, f) for f in ANCHOR_FIELDS],
                        [getattr(holder["r"], f) for f in ANCHOR_FIELDS])
     # per read: n_sfs, overflow, incomplete; and iters
-    nbytes, ops = anchor_bound(index, llens, work, live.n_sfs,
-                               6 * len(llens) + 4)
-    bms, by = bound(nbytes, ops)
+    nbytes, ops = anchor_bytes_ops(index, llens, work, live.n_sfs,
+                                   6 * len(llens) + 4)
+    bms, by = bound_ms(nbytes, ops)
     return {"shape": f"Q={Q} ({len(llens)} live) L+1={Lp1} cap={cap} "
                      f"max_rounds={kw.get('max_rounds')}",
             "result": got,
@@ -2334,7 +2285,9 @@ def time_anchor_batch(spy: Spy) -> dict:
 
 def time_anchor_pool(spy: Spy) -> dict:
     from svdss_tpu_torch.ops import anchor_device, anchor_pool
+    from svdss_tpu_torch.tools.common import anchor_bytes_ops, bound_ms
     _, (index, params, syms, offs, lens), kw = spy.best
+    kw.pop("work", None)        # the pool's own counter (rounds_run)
     M = lens.shape[0]
     cap, Lp1 = kw["cap"], kw["Lp1"]
     work = torch.zeros(4, dtype=torch.int64, device=syms.device)
@@ -2362,8 +2315,9 @@ def time_anchor_pool(spy: Spy) -> dict:
                                             pool_flags(k3)]))
     iters = int(k3.iters)
     # per read: its offset into syms (8 B), n_sfs and flags
-    nbytes, ops = anchor_bound(index, lens, work, got.n_sfs, 8 * M + 5 * M)
-    bms, by = bound(nbytes, ops)
+    nbytes, ops = anchor_bytes_ops(index, lens, work, got.n_sfs,
+                                   8 * M + 5 * M)
+    bms, by = bound_ms(nbytes, ops)
     return {"shape": f"M={M} lanes={kw.get('lanes')} L+1={Lp1} cap={cap}",
             "work": dict(zip(anchor_device.WORK_FIELDS, work)),
             "slowest_read_rounds": iters, "ms_per_round": ms / iters,
@@ -2377,6 +2331,7 @@ def time_anchor_wide(spy: Spy) -> dict:
     """K5 on the wide run's largest launch: the same wave relaunched on
     fresh copies of the lane state it was given."""
     from svdss_tpu_torch.ops import anchor_wide_device as aw
+    from svdss_tpu_torch.tools.common import bound_ms, wide_bytes_ops
     _, args, _ = spy.best
     (index, params, seqs, lens, state, oq, ol, rounds, r0, cap, max_rounds,
      overlap, park) = args[:13]
@@ -2418,24 +2373,15 @@ def time_anchor_wide(spy: Spy) -> dict:
     mine, want = aw.result_of(*got), aw.result_of(*plain)
     err = max_abs_diff([getattr(mine, f) for f in ANCHOR_FIELDS],
                        [getattr(want, f) for f in ANCHOR_FIELDS])
-    # bytes: each live read's symbols once, its length and its lane state
-    # (read and written back), one 32-bit table word per table row read
-    # (capped at the tables), 2 bits per compared text symbol and a
-    # badrow word per compare (capped at the text), 8 B per emission
-    # written, the round count
-    rounds_n, rows, text_rows, syms = work
-    llens = lens[live]
+    # the live lanes' work (tools/common.py wide_bytes_ops)
     n_live = int(live.sum())
     tables = sum(t.numel() * 4 for t in (index.ct, index.aux,
                                           index.pospairs, index.bms,
                                           index.lperm))
     text = (index.text2.numel() + index.badrow.numel()) * 4
-    emitted = int(lst[0][aw.S["nsfs"]].sum())
-    nbytes = (int((llens.long() + 1).sum()) + 4 * n_live
-              + 2 * 4 * len(aw.STATE) * n_live + min(tables, 4 * rows)
-              + min(text, -(-syms // 4) + 4 * text_rows) + 8 * emitted + 4)
-    bms, by = bound(nbytes, rounds_n * OPS_PER_ANCHOR_ROUND
-                    + syms * OPS_PER_COMPARED_SYMBOL)
+    nbytes, ops = wide_bytes_ops(index, lens[live], work,
+                                 int(lst[0][aw.S["nsfs"]].sum()))
+    bms, by = bound_ms(nbytes, ops)
     slowest = int(mine.iters) - r0
     return {"shape": f"Q={Q} ({n_live} live) L+1={Lp1} cap={cap} "
                      f"park={park} r0={r0}",
@@ -2720,6 +2666,76 @@ def phase_chr_scale(wd: str) -> dict:
     return info
 
 
+# ----------------------------------------------------------------- bench
+
+# the port's bench (svdss_tpu_torch/tools/bench.py) at its --smoke size with
+# every lane held, then the rest of that workload's checks: K2's jump mode,
+# the pool over two chunks, and 30 kb reads over the same genome
+BENCH_ARGV = ["--smoke", "--check-all"]
+BENCH_LONG = (64, 30_000)
+BENCH_POOL_LANES = 64        # two chunks of 128 reads: refill and copy stream
+BENCH_PATH = ("pingpong_fm", "jump_level", "anchor_batch", "anchor_pool",
+              "anchor_wide")
+
+
+def phase_bench(wd: str) -> dict:
+    """The port's bench in this process at BENCH_ARGV (exit 0, smoke_ok:
+    every lane of K3, K2 and the K5 waves held against the host engine,
+    flagged lanes included); then all its reads through K2's jump mode
+    (the 6-mer table, K6) and the pool (K4) over two chunks, and
+    BENCH_LONG = (reads, length) through K3 and K2, against the host
+    engine. Launch counts are set to 0 just before and read just after:
+    each kernel of BENCH_PATH must launch, and no lane may disagree."""
+    import contextlib
+    import io
+    from svdss_tpu_torch.ops.anchor_device import build_device_anchor
+    from svdss_tpu_torch.ops.fmd import DeviceFMDIndex, build_jump_table
+    from svdss_tpu_torch.tools import bench
+    mods = {k: importlib.import_module(m) for k, m in KERNEL_MODULES.items()}
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.time()
+    argv = BENCH_ARGV + ["--workdir", os.path.join(wd, "bench")]
+    args = bench.parse(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(argv)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    bench_s = time.time() - t0
+    dev = torch.device("cuda")
+    index, genome = bench.build_problem(args.genome_bp, args.reads,
+                                       args.read_len, workdir=args.workdir)
+    reads, lens = bench.make_reads(genome, args.reads, args.read_len)
+    dev_index = DeviceFMDIndex.from_host(index, dev)
+    didx, params = build_device_anchor(
+        bench.build_anchor(genome, args.genome_bp, workdir=args.workdir), dev)
+    par = bench.Parity()
+    want = bench.host_lists(index, reads, lens)
+    bench.check_fm(par, "fm_jump", dev_index, reads, lens, want,
+                   jump_table=build_jump_table(dev_index, CHECK_JUMP_K),
+                   jump_k=CHECK_JUMP_K)
+    bench.check_pool(par, didx, params, reads, lens, want,
+                     lanes=BENCH_POOL_LANES, mult=1)
+    r30, l30 = bench.make_reads(genome, *BENCH_LONG)
+    want30 = bench.host_lists(index, r30, l30)
+    bench.check_anchor(par, f"anchor_{BENCH_LONG[1]}", didx, params, r30,
+                       l30, want30, max_rounds=bench.round_cap(BENCH_LONG[1]))
+    bench.check_fm(par, f"fm_{BENCH_LONG[1]}", dev_index, r30, l30, want30)
+    launches = {k: mod.launches for k, mod in mods.items()}
+    info = {"phase": "bench", "seconds": time.time() - t0,
+            "bench_seconds": bench_s, "argv": BENCH_ARGV, "rc": rc,
+            "line": line, "long_reads": list(BENCH_LONG),
+            "launches": launches, "checked": par.checked,
+            "flagged": par.flagged, "mismatched": par.mismatched}
+    emit(info)
+    idle = [k for k in BENCH_PATH if launches[k] < 1]
+    if rc != 0 or not line.get("smoke_ok") or par.mismatched or idle:
+        raise RuntimeError(f"bench phase: rc {rc}, smoke_ok "
+                           f"{line.get('smoke_ok')}, mismatched "
+                           f"{par.mismatched}, no launch of {idle}")
+    return info
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -2781,6 +2797,7 @@ def main() -> int:
         phase_ablate(timing, run["spies"]["anchor_batch"], keep)
         phase_giant(wd)
         phase_chr_scale(wd)
+        phase_bench(wd)
     finally:
         if not args.keep:
             shutil.rmtree(wd, ignore_errors=True)

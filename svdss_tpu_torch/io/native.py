@@ -125,12 +125,26 @@ def bgzf_write_all(path: str, data, level: int = 1, n_threads: int = 2,
                                 n_threads, flags) == 0
 
 
+class _CBuffer:
+    """One C allocation of the native library, exposed to numpy through the
+    array interface and freed when the last array or view over it goes."""
+
+    def __init__(self, lib, ptr: int, size: int):
+        self._lib = lib
+        self._ptr = ptr
+        self.__array_interface__ = {"shape": (size,), "typestr": "|u1",
+                                    "data": (ptr, False), "version": 3}
+
+    def __del__(self):
+        self._lib.svdss_free(self._ptr)
+
+
 def bgzf_read_all(path: str, n_threads: int = 4):
     """Decompress a whole BGZF file with the native parallel inflater.
 
-    Returns a memoryview over a numpy buffer (one memmove from the C
-    buffer; ctypes.string_at measured ~6x slower at GB scale), or None
-    when the native library is unavailable."""
+    Returns a memoryview over the C buffer itself, freed when the last view
+    of it goes (no copy: the inflated file is held once), or None when the
+    native library is unavailable."""
     lib = load()
     if lib is None:
         return None
@@ -140,13 +154,7 @@ def bgzf_read_all(path: str, n_threads: int = 4):
                              ctypes.byref(size), n_threads)
     if rc != 0:
         return None
-    try:
-        buf = np.empty(size.value, dtype=np.uint8)
-        if size.value:
-            ctypes.memmove(buf.ctypes.data, data, size.value)
-        return memoryview(buf)
-    finally:
-        lib.svdss_free(data)
+    return memoryview(np.asarray(_CBuffer(lib, data.value, size.value)))
 
 
 def bam_scan(data: bytes) -> Optional[np.ndarray]:

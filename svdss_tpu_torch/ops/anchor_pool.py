@@ -157,7 +157,8 @@ class AnchorPool:
     (padded width). At most two chunks are in flight: one running, the
     next queued behind it on the card. (The JAX pool's `free_slots`, the
     room in its device reservoir, has no counterpart: there is no
-    reservoir.)"""
+    reservoir.) `rounds_run` counts rounds as a pool that runs a warp a
+    read can: see its docstring."""
 
     def __init__(self, index: DeviceAnchorIndex, params: AnchorParams,
                  lanes: int, read_len: int, cap: int = 128,
@@ -176,6 +177,8 @@ class AnchorPool:
         self._done = 0
         self._copy = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
+        self._work = torch.zeros(len(WORK_FIELDS), dtype=torch.int64,
+                                 device=self.device)
         logger.info("search: anchor pool on %s — %d lanes, chunks of %d "
                     "reads, width %d", self.device, lanes, self.M, read_len)
 
@@ -192,6 +195,18 @@ class AnchorPool:
         """Reads launched and not yet collected (the JAX pool's reads in
         its lanes and reservoir)."""
         return self.in_flight
+
+    @property
+    def rounds_run(self) -> int:
+        """Anchor rounds the pool's reads have taken so far, summed over
+        every read it launched (the `rounds` field of the work counter,
+        ops/anchor_device.py WORK_FIELDS, which each chunk's launch adds
+        to). The JAX pool's `rounds_run` counts lockstep steps of its lane
+        array, each advancing every lane by one round; here each warp runs
+        its reads to their end, so there is no common step to count, and
+        the sum over reads is the work that count stood for. Reading it
+        waits for the chunks in flight."""
+        return int(self._work[0])
 
     def feed(self, tag: object, enc: np.ndarray) -> None:
         """Queue one nt6 read (len <= read_len) under an opaque tag that
@@ -219,7 +234,8 @@ class AnchorPool:
         else:
             chunk = host
         res = pool_search(self.index, self.params, *chunk, Lp1=self.Lp1,
-                          cap=self.cap, overlap=self.overlap, lanes=self.Q)
+                          cap=self.cap, overlap=self.overlap, lanes=self.Q,
+                          work=self._work)
         if self._copy is not None:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))

@@ -26,9 +26,19 @@ from ..ops.anchor_wide import (AnchorIndexWide, NeedsFallback,
 # the card's peak rates the kernel tables' bounds use (one H100 SXM)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# integer operations the work needs, counted from the recurrences: a
+# rank step is 32 packed words x (xor, add, and-not, mask, popcount,
+# accumulate) plus ~8 for the interval update; an anchor round's state
+# machine outside its loops ~60, and a verify round 4 a compared symbol
+# (two fetches, the compare, the loop test); a jump-table parent, at each
+# endpoint, 32 packed words x 5 symbols x the rank step's 6, then 4
+# children of ~8; a jump-mode lookup, the key at ~4 a symbol and the
+# row's tests
 OPS_PER_RANK_STEP = 32 * 6 + 8
 OPS_PER_ANCHOR_ROUND = 60
 OPS_PER_COMPARED_SYMBOL = 4
+OPS_PER_KEY_SYMBOL = 4
+OPS_PER_JUMP_PARENT = 2 * 32 * 5 * 6 + 4 * 8
 # two-strand symbols from which `run` takes the wide anchor tables
 # (cli._wide_anchor)
 WIDE_BY_SIZE = 1_200_000_000
@@ -387,6 +397,92 @@ def bound_ms(nbytes: float, ops: float) -> Tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fm_bytes_ops(index, lens, steps: int, n_sfs, jump_table=None,
+                 jump_rows: int = 0, k: int = 0) -> Tuple[int, int]:
+    """(bytes, operations) the FM search (K2) of the reads `lens` needs:
+    each read's symbols, its sentinel and its length once, a 192 B fused
+    row a rank step (at most the table), with jumps 16 B a table row read
+    (at most the table), 8 B an emission written and the per-lane results;
+    200 operations a rank step and k x 4 + 8 a jump-table row."""
+    Q = lens.numel()
+    nbytes = (int((lens.long() + 1).sum()) + 4 * Q
+              + min(index.fused.numel() * 4, 192 * steps)
+              + (min(jump_table.numel() * 4, 16 * jump_rows)
+                 if jump_table is not None else 0)
+              + 8 * int(n_sfs.sum()) + 6 * Q + 4)
+    return nbytes, (steps * OPS_PER_RANK_STEP
+                    + jump_rows * (k * OPS_PER_KEY_SYMBOL + 8))
+
+
+def jump_table_work(index, k: int) -> Tuple[int, Dict[str, int]]:
+    """What K6 reads building the k-mer table: the fused rows its levels
+    touch (each counted once; a parent reads its rows at lo = x0 and
+    hi = x0 + size, row 0 when absent), and its parents by kind (absent,
+    both ends in one row, in two rows), from the plain levels."""
+    from ..ops import fmd
+    touched = torch.zeros(index.fused.shape[0], dtype=torch.bool,
+                          device=index.device)
+    rows = fmd.level_one(index)
+    kinds = {"absent": 0, "one_row": 0, "two_rows": 0}
+    for _ in range(1, k):
+        live = rows[:, 2] > 0
+        lo = torch.where(live, rows[:, 0], 0)
+        hi = lo + torch.where(live, rows[:, 2], 0)
+        touched[(lo >> 7).long()] = True
+        touched[(hi >> 7).long()] = True
+        one = live & ((lo >> 7) == (hi >> 7))
+        kinds["absent"] += int((~live).sum())
+        kinds["one_row"] += int(one.sum())
+        kinds["two_rows"] += int((live & ~one).sum())
+        rows = fmd.jump_level_plain(index, rows)
+    return int(touched.sum()), kinds
+
+
+def jump_bytes_ops(index, k: int, rows_touched: int, parents: int
+                   ) -> Tuple[int, int]:
+    """(bytes, operations) of K6's table: the rows its levels touch, C and
+    the table written once; 1,952 operations a parent."""
+    return (192 * rows_touched + 4 * 8 + 16 * 4 ** k,
+            parents * OPS_PER_JUMP_PARENT)
+
+
+def anchor_bytes_ops(didx, lens_t, work, n_sfs, scalars: int):
+    """(bytes, operations) the narrow anchor work (K3, K4) of the reads
+    `lens_t` needs: each read's symbols and length once, the table rows
+    (16 B) and text rows (64 B) its rounds touched (each up to its table),
+    the emissions written (8 B each; the zeroed rest of each [cap] row is
+    left out, nothing reads it) and `scalars` bytes of per-read results;
+    60 operations a round and 4 a compared symbol. `work` holds the
+    WORK_FIELDS counts."""
+    rounds, rows, text_rows, syms = work
+    nbytes = (int((lens_t.long() + 1).sum()) + 4 * lens_t.numel()
+              + min(didx.small.numel() * 4, 16 * rows)
+              + min(didx.text_words.numel() * 4, 64 * text_rows)
+              + 8 * int(n_sfs.sum()) + scalars)
+    return nbytes, (rounds * OPS_PER_ANCHOR_ROUND
+                    + syms * OPS_PER_COMPARED_SYMBOL)
+
+
+def wide_bytes_ops(didx, lens_t, work, emitted: int) -> Tuple[int, int]:
+    """(bytes, operations) the wide anchor work (K5) of the reads `lens_t`
+    needs: each read's symbols and length once, its lane state read and
+    written back, a 32-bit word a table row read (at most the tables),
+    2 bits a compared text symbol and a badrow word a text row (at most
+    the text), 8 B an emission written and the round count; 60 operations
+    a round and 4 a compared symbol. `work` holds the WORK_FIELDS counts,
+    `emitted` the emissions."""
+    rounds, rows, text_rows, syms = work
+    Q = lens_t.numel()
+    tables = sum(t.numel() * 4 for t in (didx.ct, didx.aux, didx.pospairs,
+                                         didx.bms, didx.lperm))
+    text = (didx.text2.numel() + didx.badrow.numel()) * 4
+    nbytes = (int((lens_t.long() + 1).sum()) + 4 * Q
+              + 2 * 4 * len(aw.STATE) * Q + min(tables, 4 * rows)
+              + min(text, -(-syms // 4) + 4 * text_rows) + 8 * emitted + 4)
+    return nbytes, (rounds * OPS_PER_ANCHOR_ROUND
+                    + syms * OPS_PER_COMPARED_SYMBOL)
+
+
 # ------------------------------------------------------------- the oracle
 
 def read_oracle(root: str) -> Dict[int, Optional[list]]:
@@ -542,10 +638,7 @@ def k5_oneshot(didx, params, seqs, lens, cap: int, dev):
     per-lane SFS lists, fallback flags). The record has the launches, the
     slowest lane's rounds, the work counts, the time (CUDA events, mean of
     3 after a warm-up; on the CPU the plain version's seconds, under
-    another name) and the least time of that work: each read's symbols,
-    length and lane state (both ways), a 32-bit word a table row, 2 bits a
-    compared symbol and a badrow word a text row, 8 B an emission; 60
-    operations a round and 4 a compared symbol."""
+    another name) and the least time of that work (wide_bytes_ops)."""
     work = torch.zeros(4, dtype=torch.int64, device=dev)
     l0 = aw.launches
     t0 = time.time()
@@ -561,15 +654,9 @@ def k5_oneshot(didx, params, seqs, lens, cap: int, dev):
         out["us_per_round"] = out["k5_ms"] * 1e3 / max(1, out["iters"])
     else:
         out["plain_s_cpu"] = time.time() - t0
-    rounds, rows, text_rows, syms = out["work"].values()
-    Q = seqs.shape[0]
-    nbytes = (int((lens.long() + 1).sum()) + 4 * Q
-              + 2 * 4 * len(aw.STATE) * Q + 4 * rows
-              + -(-syms // 4) + 4 * text_rows
-              + 8 * int(res.n_sfs.sum()) + 4)
+    nbytes, ops = wide_bytes_ops(didx, lens, list(out["work"].values()),
+                                 int(res.n_sfs.sum()))
     out["bound_bytes"] = nbytes
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        nbytes, rounds * OPS_PER_ANCHOR_ROUND
-        + syms * OPS_PER_COMPARED_SYMBOL)
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, ops)
     lists, bad = result_lists(res)
     return out, lists, bad

@@ -208,14 +208,9 @@ def device_stage(args, index, reads, lens, dev, rep, log) -> dict:
         k2["reads_per_s_device"] = args.reads / (k2["k2_ms"] / 1e3)
     else:
         k2["plain_s_cpu"] = time.time() - t0
-    # bytes: each read's symbols and length, a 192 B row a rank step (at
-    # most the table), 8 B an emission and the per-lane scalars
-    nbytes = (int((lens_t.long() + 1).sum()) + 4 * args.reads
-              + min(di.fused.numel() * 4, 192 * k2["rank_steps"])
-              + 8 * int(res.n_sfs.sum()) + 6 * args.reads + 4)
+    nbytes, ops = C.fm_bytes_ops(di, lens_t, k2["rank_steps"], res.n_sfs)
     k2["bound_bytes"] = nbytes
-    k2["bound_ms"], k2["bound_by"] = C.bound_ms(
-        nbytes, k2["rank_steps"] * C.OPS_PER_RANK_STEP)
+    k2["bound_ms"], k2["bound_by"] = C.bound_ms(nbytes, ops)
     rep["k2"] = k2
     rep.flush()
     log(f"[device] K2 wide={di.wide}: {k2}")
