@@ -103,7 +103,16 @@ checkout at first use. Phases, each printing one JSON line:
            4 Mbp slice against the host engine (K5: the wide oracle), and
            64 reads of 30 kb over the same genome through K3 and K2
            against the host engine; launch counts from 0, and each of
-           K2-K6 must launch.
+           K2-K6 must launch;
+  tools    the JAX repo's device tools (svdss_tpu_torch/tools/): profile
+           (torch.profiler with CUDA activities: kernel time by name,
+           busy share, idle gaps) of K2 with K6's table, K3, K5 and K4 at
+           --smoke and of the search stage on the auto run's directory,
+           each trace naming its kernel; gather_model on two grid points;
+           lane_hist, len_sweep and step_cost at --smoke; scaling_bench at
+           1 and 2 processes (merged SFSs identical) and genotype_eval on
+           a 1 Mbp sample (every planted SV called); each tool, and each
+           `cli` process of the last two, with its launch counts from 0.
 
 The env line carries each kernel's registers and spills (nvcc's
 ``-Xptxas -v``). Then the card's nvidia-smi line, the kernel table as one
@@ -2736,6 +2745,139 @@ def phase_bench(wd: str) -> dict:
     return info
 
 
+# ----------------------------------------------------------------- tools
+
+# the JAX repo's device tools (svdss_tpu_torch/tools/) at a small size:
+# profile's targets at --smoke (target, extra argv, kernels it launches);
+# the others' argv
+PROFILE_TARGETS = (("fm", ["--jump-k", str(CHECK_JUMP_K), "--max-iters", "0"],
+                    ("pingpong_fm", "jump_level")),
+                   ("anchor", [], ("anchor_batch",)),
+                   ("wide", [], ("anchor_wide",)),
+                   ("pool", [], ("anchor_pool",)))
+KERNEL_K = {"wavefront_dp": "K1", "pingpong_fm": "K2", "anchor_batch": "K3",
+            "anchor_pool": "K4", "anchor_wide": "K5", "jump_level": "K6"}
+TOOL_RUNS = (("gather_model", ["--grid", "jax", "--points",
+                               "100000x48,8000x48", "--qs", "4096"], ()),
+             ("lane_hist", ["--smoke"], ("anchor_batch",)),
+             ("len_sweep", ["--smoke"], ("anchor_batch",)),
+             ("step_cost", ["--smoke"], ("pingpong_fm",)))
+SCALING_ARGV = ["--reads", "64", "--read-len", "2000", "--procs", "1,2"]
+GENOTYPE_ARGV = ["--genome-mbp", "1", "--n-hom", "4", "--n-het", "4"]
+
+
+def tool_line(name: str, argv: list, mods: dict) -> tuple:
+    """svdss_tpu_torch.tools.<name>.main(argv) in this process with every
+    launch count from 0: (exit code, its last JSON line, launches)."""
+    import contextlib
+    import io
+    mod = importlib.import_module(f"svdss_tpu_torch.tools.{name}")
+    for m in mods.values():
+        m.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    return (rc, json.loads(out.getvalue().strip().splitlines()[-1]),
+            {k: m.launches for k, m in mods.items()})
+
+
+def traced(line: dict, kernels) -> bool:
+    """The profile line names each kernel as traced, or says why it has no
+    busy share ("not measured", the kernels missing from the trace)."""
+    want = {KERNEL_K[k] for k in kernels}
+    if line.get("busy_share") == "not measured":
+        return want <= set(line.get("kernels_missing_from_trace", ()))
+    return want <= set(line["kernels_in_trace"])
+
+
+def phase_tools(wd: str, run: dict) -> dict:
+    """The JAX repo's device tools on the card: profile's fm (with K6's
+    table), anchor, wide and pool targets at --smoke on the bench phase's
+    work directory and its search target on the auto run's directory
+    (the trace must name each target's kernel, and the search write the
+    run's specifics.txt); gather_model on two of its grid points (sums
+    checked); lane_hist, len_sweep and step_cost at --smoke; scaling_bench
+    at P = 1, 2 (merged outputs identical) and genotype_eval on a 1 Mbp
+    sample (every planted SV called), each `cli` process of those two with
+    its launch counts (count_worker). Launch counts are set to 0 just
+    before each tool and read just after: each must launch its kernels."""
+    from svdss_tpu_torch.tools import genotype_eval, scaling_bench
+    mods = {k: importlib.import_module(m) for k, m in KERNEL_MODULES.items()}
+    bench_wd = os.path.join(wd, "bench")
+    t0 = time.time()
+    runs, failed = {}, []
+
+    def record(name, rc, line, launches, kernels, ok):
+        idle = [k for k in kernels if launches.get(k, 0) < 1]
+        keep = {k: line[k] for k in (
+            "busy_share", "window_ms", "device_busy_ms", "kernels_in_trace",
+            "trace_bytes", "result", "sums_ok", "utilization", "iters",
+            "marginal_us_per_step", "merged_outputs_identical",
+            "efficiency", "n_called", "n_truth", "gt_concordance")
+            if k in line}
+        runs[name] = {"rc": rc, "launches": {k: n for k, n in
+                                             launches.items() if n},
+                      **keep}
+        if rc != 0 or idle or not ok:
+            failed.append(name)
+
+    for target, extra, kernels in PROFILE_TARGETS:
+        rc, line, launches = tool_line("profile", [
+            "--smoke", "--target", target, *extra, "--workdir", bench_wd],
+            mods)
+        record(f"profile_{target}", rc, line, launches, kernels,
+               traced(line, kernels))
+    rc, line, launches = tool_line("profile", [
+        "--target", "search", "--run-workdir", run["dirs"]["auto"],
+        "--workdir", bench_wd], mods)
+    record("profile_search", rc, line, launches, ("anchor_pool",),
+           traced(line, ("anchor_pool",))
+           and line["result"].get("specifics_identical") is True)
+    for name, argv, kernels in TOOL_RUNS:
+        argv = argv + (["--workdir", bench_wd] if name != "gather_model"
+                       else [])
+        rc, line, launches = tool_line(name, argv, mods)
+        ok = {"gather_model": lambda: line["sums_ok"],
+              "lane_hist": lambda: 0 < line["utilization"] <= 1,
+              "len_sweep": lambda: len(line) == 4,
+              "step_cost": lambda: line["iters"]["full"] > 1920}[name]()
+        record(name, rc, line, launches, kernels, ok)
+    # the two tools that run `cli` processes, each in a count_worker
+    counts = os.path.join(wd, "tools_launches.jsonl")
+    saved = scaling_bench.CLI, genotype_eval.CLI
+    worker = [sys.executable, os.path.abspath(__file__), "--count-worker",
+              counts, "--"]
+    scaling_bench.CLI = genotype_eval.CLI = worker
+    try:
+        for name, argv, kernels, key in (
+                ("scaling_bench", SCALING_ARGV, ("pingpong_fm",),
+                 "merged_outputs_identical"),
+                ("genotype_eval", GENOTYPE_ARGV,
+                 ("pingpong_fm", "wavefront_dp"), "n_called")):
+            if os.path.exists(counts):
+                os.remove(counts)
+            rc, line, _ = tool_line(name, argv + [
+                "--workdir", os.path.join(wd, name)], mods)
+            procs = [json.loads(x) for x in open(counts)] \
+                if os.path.exists(counts) else []
+            launches = {k: min((p["launches"][k] for p in procs), default=0)
+                        for k in kernels}
+            ok = bool(procs) and all(p["rc"] == 0 for p in procs) and (
+                line[key] is True if key == "merged_outputs_identical"
+                else line["n_called"] == line["n_truth"] > 0)
+            record(name, rc, line, launches, kernels, ok)
+            runs[name]["processes"] = len(procs)
+    finally:
+        scaling_bench.CLI, genotype_eval.CLI = saved
+    info = {"phase": "tools", "seconds": time.time() - t0,
+            "gpu": nvidia_smi(), "runs": runs, "failed": failed}
+    emit(info)
+    if failed:
+        raise RuntimeError(f"tools phase: {failed} failed, disagree or "
+                           "launched no kernel")
+    return info
+
+
 # ----------------------------------------------------------------- main
 
 KERNELS = (
@@ -2798,6 +2940,7 @@ def main() -> int:
         phase_giant(wd)
         phase_chr_scale(wd)
         phase_bench(wd)
+        phase_tools(wd, run)
     finally:
         if not args.keep:
             shutil.rmtree(wd, ignore_errors=True)

@@ -116,14 +116,27 @@ def log(msg: str) -> None:
 
 # -------------------------------------------------------------- workload
 
+def make_genome(genome_bp: int, seed: int = 3) -> np.ndarray:
+    """bench.py's random genome (seed 3) as ACGT bytes."""
+    rng = np.random.default_rng(seed)
+    return np.frombuffer(b"ACGT", dtype=np.uint8)[
+        rng.integers(0, 4, genome_bp)]
+
+
+def genome_nt6(genome_arr: np.ndarray) -> np.ndarray:
+    """ACGT bytes as nt6 codes 1..4."""
+    g6 = np.zeros(len(genome_arr), dtype=np.uint8)
+    for i, b in enumerate(b"ACGT"):
+        g6[genome_arr == b] = i + 1
+    return g6
+
+
 def build_problem(genome_bp: int, n_reads: int, read_len: int, seed: int = 3,
                   workdir: str = "build/bench"):
     """bench.py's genome (seed 3) and its two-strand FMD index, cached as
     WORKDIR/index_GENOME_BP.npz."""
     cache = os.path.join(workdir, f"index_{genome_bp}.npz")
-    rng = np.random.default_rng(seed)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    genome_arr = bases[rng.integers(0, 4, genome_bp)]
+    genome_arr = make_genome(genome_bp, seed)
     if os.path.exists(cache):
         index = FMDIndex.load(cache)
     else:
@@ -140,9 +153,7 @@ def make_reads(genome_arr: np.ndarray, n_reads: int, read_len: int,
                seed: int = 5):
     genome_bp = len(genome_arr)
     rng = np.random.default_rng(seed)
-    g6 = np.zeros(genome_bp, dtype=np.uint8)
-    for i, b in enumerate(b"ACGT"):
-        g6[genome_arr == b] = i + 1
+    g6 = genome_nt6(genome_arr)
     reads = np.zeros((n_reads, read_len + 1), dtype=np.uint8)
     lens = np.full(n_reads, read_len, dtype=np.int32)
     starts = rng.integers(0, genome_bp - read_len, n_reads)
@@ -276,24 +287,38 @@ def time_pool(didx, params, index, reads, lens, cap: int = 512,
     batch, including read upload, result download and the host redo; cold
     (the kernels' first launch), then warm. Returns (rate, host redos,
     rounds_run, pool launches) of the warm run."""
+    enc = pool_stream(reads, lens, mult)
+    cold = pool_pass(didx, params, index, enc, cap, lanes)
+    dt, redo, rounds, launches, n_sfs = pool_pass(didx, params, index, enc,
+                                                  cap, lanes)
+    log(f"pool: {len(enc)} reads, cold {cold[0]:.2f}s, warm {dt:.2f}s "
+        f"({n_sfs} SFS from the card, {redo} host redos)")
+    return len(enc) / dt, redo, rounds, launches
+
+
+def pool_stream(reads, lens, mult: int = 4) -> List[np.ndarray]:
+    """time_pool's read stream: the batch `mult` times over."""
     n0 = len(reads)
-    n = n0 * mult
-    read_len = int(lens.max())
-    enc = [reads[i % n0, :lens[i % n0]] for i in range(n)]
+    return [reads[i % n0, :lens[i % n0]] for i in range(n0 * mult)]
 
-    def run():
-        pool = AnchorPool(didx, params, lanes=lanes, read_len=read_len,
-                          cap=cap)
-        l0 = anchor_pool.launches
-        t0 = time.time()
-        redo = [tag for tag, pairs in pool.run(enc) if pairs is None]
-        if redo:
-            host_search_batch(index, [enc[i] for i in redo])
-        rate = n / (time.time() - t0)
-        return rate, len(redo), pool.rounds_run, anchor_pool.launches - l0
 
-    run()                               # cold
-    return run()                        # warm
+def pool_pass(didx, params, index, enc: List[np.ndarray], cap: int = 512,
+              lanes: int = 8192):
+    """One pass of a new pool over the stream `enc`, the reads it flags
+    redone by the host engine: (seconds from the pool's first read to the
+    last redo, host redos, rounds_run, pool launches, SFSs of the reads
+    the card answered)."""
+    pool = AnchorPool(didx, params, lanes=lanes,
+                      read_len=max(len(e) for e in enc), cap=cap)
+    l0 = anchor_pool.launches
+    t0 = time.time()
+    got = list(pool.run(enc))
+    redo = [tag for tag, pairs in got if pairs is None]
+    if redo:
+        host_search_batch(index, [enc[i] for i in redo])
+    return (time.time() - t0, len(redo), pool.rounds_run,
+            anchor_pool.launches - l0,
+            sum(len(pairs) for _, pairs in got if pairs is not None))
 
 
 def measure_host_baseline(index, reads, lens, n_sample: int,
@@ -422,7 +447,7 @@ def check_pool(par: Parity, didx, params, reads, lens, want,
     """The pool as time_pool runs it, over a stream `mult` times the reads:
     every result of the stream against its read's list."""
     n0 = len(reads)
-    enc = [reads[i % n0, :lens[i % n0]] for i in range(n0 * mult)]
+    enc = pool_stream(reads, lens, mult)
     got = dict(AnchorPool(didx, params, lanes=lanes,
                           read_len=int(lens.max()), cap=512).run(enc))
     par.hold_lists("pool", [got[i] for i in range(len(enc))],
@@ -678,8 +703,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.engine != "fm" and index.n < 2 ** 31:
         aidx = build_anchor(genome_arr, args.genome_bp,
                             workdir=args.workdir)
+        t0 = time.time()
         didx, params = build_device_anchor(aidx, dev)
-        log(f"anchor tables: {didx.nbytes / 2**30:.2f} GiB (k={params.k})")
+        C.sync(dev)
+        log(f"anchor tables: {didx.nbytes / 2**30:.2f} GiB (k={params.k}), "
+            f"layout and upload {time.time() - t0:.1f}s")
     jump_kw = {}
     if args.jump_k:
         t0 = time.time()

@@ -369,6 +369,19 @@ def card_info(dev: torch.device) -> dict:
                          "--format=csv,noheader"])}
 
 
+NOT_MEASURED = "not measured"
+
+
+def device_number(dev: torch.device, name: str, value) -> dict:
+    """{name: value} for a number taken on the card ("not measured" where
+    it gave none: value None); from a CPU run {name: "not measured",
+    "cpu_" + name: value}, so that no CPU number stands under a device
+    metric's name."""
+    if dev.type == "cuda":
+        return {name: NOT_MEASURED if value is None else value}
+    return {name: NOT_MEASURED, "cpu_" + name: value}
+
+
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
