@@ -1,0 +1,9 @@
+"""Anchor pool: host ms inside the benchmark's spans around the pool's
+calls (feed, pump, drain, creation) per 1,000 reads, over the window and
+its drain."""
+
+
+def read(ctx):
+    if ctx.reads == 0:
+        return None
+    return float(ctx.pool_s) * 1e3 / (ctx.reads / 1e3)
