@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .anchor import AnchorIndex
 from .pingpong import PingPongResult
 from ..utils.device import (check_launch, load_kernels, resolve_device,
@@ -146,9 +147,24 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 def build_device_anchor(aidx: AnchorIndex, device=None
                         ) -> Tuple[DeviceAnchorIndex, AnchorParams]:
     """Build the device tables of a host `AnchorIndex` on `device` (cuda
-    unless asked otherwise). `small` is allocated once at its final size
-    and filled in place (its meta rows alone are 4 GiB at k = 14)."""
+    unless asked otherwise): the host layout, then the upload, which ends
+    when the copies have landed."""
     dev = resolve_device(device)
+    with trace.span("tables: layout"):
+        small, params = _layout_small(aidx)
+        text_words = pack_text_words(aidx.text)
+    with trace.span("tables: upload"):
+        out = from_arrays(small, text_words, params, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    trace.count("tables: bytes uploaded", small.nbytes + text_words.nbytes)
+    return out
+
+
+def _layout_small(aidx: AnchorIndex) -> Tuple[np.ndarray, AnchorParams]:
+    """The `small` table of a host `AnchorIndex` and its parameters.
+    `small` is allocated once at its final size and filled in place (its
+    meta rows alone are 4 GiB at k = 14)."""
     k, j0 = aidx.k, aidx.j0
     nk = 4 ** k
     pl_rows = -(-len(aidx.poslist) // 4)
@@ -184,7 +200,7 @@ def build_device_anchor(aidx: AnchorIndex, device=None
         row += nrows
     params = AnchorParams(k=k, j0=j0, cmax=aidx.cmax, n=aidx.n,
                           pos_base=pos_base, bm_bases=tuple(bm_bases))
-    return from_arrays(small, pack_text_words(aidx.text), params, dev)
+    return small, params
 
 
 def chunk_rows(lp1: int) -> int:

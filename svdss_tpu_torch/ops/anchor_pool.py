@@ -22,6 +22,14 @@ the lane count nor on scheduling: they equal the JAX pool's, and the
 one-shot engine's under the same per-lane budget. On the CPU
 `pool_search` runs the plain version: the plain one-shot loop over the
 chunk with that budget.
+
+A chunk's host steps are spans of ``svdss_tpu_torch/trace.py``: ``pool:
+pack``, ``pool: copy in``, ``pool: launch``, ``pool: wait`` (only when the
+oldest chunk has not finished when its results are due), ``pool: fetch``
+and ``pool: lists``; the counters ``pool: chunks``, ``pool: reads
+launched``, ``pool: flagged overflow`` and ``pool: flagged fallback`` (a
+read flagged both ways counts as an overflow) and ``pool: bytes
+fetched``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import (Deque, Iterable, Iterator, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from .. import trace
 from .anchor_device import (AnchorParams, DeviceAnchorIndex, WORK_FIELDS,
                             batch_search_anchor_plain, table_args)
 from ..utils.device import check_launch, load_kernels, stream_handle
@@ -219,26 +228,33 @@ class AnchorPool:
     def _launch_chunk(self) -> None:
         m = min(self.M, len(self._queue))
         tags, encs = zip(*(self._queue.popleft() for _ in range(m)))
-        host = [torch.from_numpy(a) for a in pack_chunk(list(encs))]
+        with trace.span("pool: pack"):
+            host = [torch.from_numpy(a) for a in pack_chunk(list(encs))]
+            if self._copy is not None:
+                host = [h.pin_memory() for h in host]
         done = None
         if self._copy is not None:
             # pinned, and copied on the side stream: the copy overlaps the
             # launch before it; the compute stream waits for it
-            host = [h.pin_memory() for h in host]
-            with torch.cuda.stream(self._copy):
-                chunk = [h.to(self.device, non_blocking=True) for h in host]
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_stream(self._copy)
-            for t in chunk:
-                t.record_stream(cur)
+            with trace.span("pool: copy in"):
+                with torch.cuda.stream(self._copy):
+                    chunk = [h.to(self.device, non_blocking=True)
+                             for h in host]
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_stream(self._copy)
+                for t in chunk:
+                    t.record_stream(cur)
         else:
             chunk = host
-        res = pool_search(self.index, self.params, *chunk, Lp1=self.Lp1,
-                          cap=self.cap, overlap=self.overlap, lanes=self.Q,
-                          work=self._work)
-        if self._copy is not None:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+        with trace.span("pool: launch"):
+            res = pool_search(self.index, self.params, *chunk, Lp1=self.Lp1,
+                              cap=self.cap, overlap=self.overlap,
+                              lanes=self.Q, work=self._work)
+            if self._copy is not None:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        trace.count("pool: chunks")
+        trace.count("pool: reads launched", m)
         self._flight.append((tags, res, done, host))
         self._pushed += m
 
@@ -248,15 +264,27 @@ class AnchorPool:
         out: List = []
         while self._flight:
             tags, res, done, _ = self._flight[0]
-            if (len(self._flight) <= keep and done is not None
-                    and not done.query()):
+            ready = done is None or done.query()
+            if len(self._flight) <= keep and not ready:
                 break
             self._flight.popleft()
-            qs, ls, nn, fl = (t.cpu().numpy() for t in res)
-            for j, tag in enumerate(tags):
-                n = int(nn[j])
-                out.append((tag, None if fl[j] else list(zip(
-                    qs[j, :n].tolist(), ls[j, :n].tolist()))))
+            if not ready:
+                with trace.span("pool: wait"):
+                    done.synchronize()
+            with trace.span("pool: fetch"):
+                qs, ls, nn, fl = (t.cpu().numpy() for t in res)
+            with trace.span("pool: lists"):
+                for j, tag in enumerate(tags):
+                    n = int(nn[j])
+                    out.append((tag, None if fl[j] else list(zip(
+                        qs[j, :n].tolist(), ls[j, :n].tolist()))))
+            # a read flagged both ways counts as an overflow
+            over = (fl & OVERFLOW) != 0
+            trace.count("pool: flagged overflow", int(over.sum()))
+            trace.count("pool: flagged fallback",
+                        int(((fl != 0) & ~over).sum()))
+            trace.count("pool: bytes fetched",
+                        sum(a.nbytes for a in (qs, ls, nn, fl)))
             self._done += len(tags)
         return out
 

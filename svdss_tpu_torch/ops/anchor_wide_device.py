@@ -66,6 +66,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .anchor_wide import AnchorIndexWide
 from .pingpong import PingPongResult, gather_results
 from ..utils.device import (check_launch, load_kernels, on_device,
@@ -226,6 +227,7 @@ def fused_counts(cnts: np.ndarray, k: int, ct16: bool,
     return ct
 
 
+@trace.traced("tables: wide layout+upload")
 def build_device_anchor_wide(widx: AnchorIndexWide, device=None
                              ) -> Tuple[DeviceAnchorWide, WideParams]:
     """The device tables of host wide tables on `device` (cuda unless asked

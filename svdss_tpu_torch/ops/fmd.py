@@ -50,6 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..index.fmd import FMDIndex
 from ..utils.device import (check_launch, load_kernels, resolve_device,
                             stream_handle)
@@ -125,6 +126,7 @@ class DeviceFMDIndex(NamedTuple):
     limb_bits: Optional[int] = None
 
     @classmethod
+    @trace.traced("tables: FM upload")
     def from_host(cls, idx: FMDIndex, device=None, force_wide: bool = False,
                   limb_bits: int = LIMB_BITS) -> "DeviceFMDIndex":
         """The device table of a host index: wide when the index holds

@@ -42,6 +42,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .fmd import DeviceFMDIndex, comp6, extend_rank_step, lookup_C
 from ..utils.device import (check_launch, load_kernels, resolve_device,
                             stream_handle)
@@ -73,6 +74,7 @@ def gather_results(results: List[PingPongResult]) -> PingPongResult:
     return PingPongResult(*cat, iters.max())
 
 
+@trace.traced("search: pack batch")
 def pack_reads(seq_arrays, pad_to: Optional[int] = None, device=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pad a list of nt6 numpy arrays into [Q, L+1] uint8 + lengths [Q]

@@ -20,7 +20,11 @@ around the batched device kernel:
     the exact path is redone on the host, so output is exact either way;
   * optionally merge overlapping SFSs per read (ops/assemble.py, on by
     default like ``--noassemble``'s inverse) and write the 4-column
-    specifics.txt.
+    specifics.txt;
+  * time its host steps as spans of ``svdss_tpu_torch/trace.py`` (``search:
+    open BAM``, ``search: dispatch``, ``search: collect``, ``search:
+    assemble``, ``search: write SFS``, ``redo: host engine`` with its
+    counters) and log their sums over each ``run_search`` call.
 
 Output records appear in BAM order (the reference emits a thread-count-
 dependent per-batch lexicographic permutation, ping_pong.cpp:213-236 with
@@ -37,6 +41,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Config
 from ..index.fmd import FMDIndex
 from ..io.bam import BamReader
@@ -57,6 +62,13 @@ from ..utils.log import logger
 
 MIN_READ_LEN = 100   # ping_pong.cpp:70
 _MIN_BUCKET = 512
+# the native engine's first emission cap (ops/pingpong_native.py
+# search_batch): a read past it is searched again at twice the cap
+NATIVE_FIRST_CAP = 512
+
+# the stage's merge and file writes, timed where run_search calls them
+assemble = trace.traced("search: assemble")(assemble)
+write_sfs_file = trace.traced("search: write SFS")(write_sfs_file)
 
 _NATIVE_FMD_CACHE: dict = {}
 
@@ -67,17 +79,27 @@ def host_search_batch(index: FMDIndex, encoded: List[np.ndarray],
     """Host-path search for a batch: the native threaded engine
     (ops/pingpong_native.py — the reference's 16-thread CPU role,
     ping_pong.cpp:329) when built, else the Python oracle. Exact either
-    way; used by --no-device runs and the device-overflow fallback."""
-    key = id(index)
-    nf = _NATIVE_FMD_CACHE.get(key)
-    if nf is None and key not in _NATIVE_FMD_CACHE:
-        from ..ops.pingpong_native import open_native_fmd
-        nf = open_native_fmd(index, threads)
-        _NATIVE_FMD_CACHE.clear()     # one live index at a time
-        _NATIVE_FMD_CACHE[key] = nf
-    if nf is not None:
-        return nf.search_batch(encoded, overlap, threads)
-    return [ping_pong_search(index, e, overlap) for e in encoded]
+    way; used by --no-device runs and the device-overflow fallback.
+    Counts its reads, their bases and the reads the native engine ran a
+    second time past its first cap (``redo: rerun``)."""
+    with trace.span("redo: host engine"):
+        key = id(index)
+        nf = _NATIVE_FMD_CACHE.get(key)
+        if nf is None and key not in _NATIVE_FMD_CACHE:
+            from ..ops.pingpong_native import open_native_fmd
+            nf = open_native_fmd(index, threads)
+            _NATIVE_FMD_CACHE.clear()     # one live index at a time
+            _NATIVE_FMD_CACHE[key] = nf
+        if nf is not None:
+            out = nf.search_batch(encoded, overlap, threads,
+                                  cap=NATIVE_FIRST_CAP)
+            trace.count("redo: rerun",
+                        sum(len(r) > NATIVE_FIRST_CAP for r in out))
+        else:
+            out = [ping_pong_search(index, e, overlap) for e in encoded]
+    trace.count("redo: reads", len(encoded))
+    trace.count("redo: bases", sum(len(e) for e in encoded))
+    return out
 
 
 def _prefetch(iterable, maxsize: int = 8192):
@@ -119,7 +141,9 @@ def _bucket_len(n: int) -> int:
 def eligible_reads_bam(bam_path: str, putative: bool
                        ) -> Iterator[Tuple[str, str, int]]:
     """(qname, seq, hp_tag) for reads the search should process."""
-    with BamReader(bam_path) as reader:
+    with trace.span("search: open BAM"):
+        reader = BamReader(bam_path)
+    with reader:
         for rec in reader:
             if not rec.is_primary:
                 continue
@@ -132,6 +156,7 @@ def eligible_reads_bam(bam_path: str, putative: bool
             yield rec.qname, rec.seq, int(hp)
 
 
+@trace.traced("search: open BAM")
 def eligible_reads_bam_native(bam_path: str, putative: bool):
     """Native fast path for the search stage's read extraction:
     parallel BGZF inflate + one C pass for eligibility / XF / HP aux
@@ -372,6 +397,7 @@ class _DeviceSearcher:
             return 0
         return max(384, L // 14)
 
+    @trace.traced("search: dispatch")
     def dispatch(self, encoded: List[np.ndarray]):
         """Launch a device batch; returns an opaque handle. A CUDA launch
         returns once queued, so packing the next batch overlaps the
@@ -431,6 +457,7 @@ class _DeviceSearcher:
             self._redo_exec.shutdown()
             self._redo_exec = None
 
+    @trace.traced("search: collect")
     def collect(self, handle, defer_redo: bool = False):
         """Materialize a dispatched batch's results (blocks on the device).
 
@@ -502,6 +529,7 @@ def run_search(config: Config, index: FMDIndex,
     SFS (the reference's --omax deferred-output buffering,
     ping_pong.cpp:344-355), bounding writer memory on whole-genome runs.
     """
+    since = trace.snapshot()
     if bam:
         reads = eligible_reads_bam_native(bam, config.putative)
         if reads is None:
@@ -686,4 +714,6 @@ def run_search(config: Config, index: FMDIndex,
                 f", {searcher.fallbacks} host fallbacks" if searcher else "")
     if out is not None:
         write_sfs_file(out, groups[unflushed[1]:])
+    logger.info("search: spans and counters of the call: %s",
+                trace.summary(since=since))
     return groups

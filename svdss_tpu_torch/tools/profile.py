@@ -36,9 +36,11 @@ torch.cuda.synchronize(), under the label ``profile:TARGET``; the Chrome
 trace goes to WORKDIR/profile_TARGET.json. A one-element op runs first
 inside the profiler, outside the label, so that the profiler's buffer
 set-up at its first CUDA call (~4 ms on the H100) falls before the
-window. The tool labels its own calls (and, for ``pool`` and ``search``,
-the pool's and the search stage's host steps) with record_function; the
-package itself carries no label.
+window. The tool labels its own calls with record_function; the
+program's host steps (the pool's pack, launch, wait, fetch and lists, the
+host redo, the table layout and upload, the search stage's batches) carry
+their own spans (svdss_tpu_torch/trace.py), which open record_function
+while the profiler records.
 
 Report (stdout; the JSON line last):
 
@@ -248,58 +250,6 @@ def analyse(events: Sequence[dict], label: str) -> dict:
             "idle_gaps": gaps}
 
 
-# ---------------------------------------------------------------- labels
-
-@contextlib.contextmanager
-def labelled(targets: Sequence[Tuple[object, str, str]]):
-    """Run each `owner.name` (a function or method) under
-    record_function(label) while the block runs, and put it back after."""
-    saved = []
-    try:
-        for owner, name, label in targets:
-            raw = vars(owner).get(name) if isinstance(owner, type) \
-                else getattr(owner, name)
-            fn = getattr(owner, name)
-            saved.append((owner, name, raw))
-
-            def wrapped(*a, _fn=fn, _label=label, **kw):
-                with record_function(_label):
-                    return _fn(*a, **kw)
-            setattr(owner, name, wrapped)
-        yield
-    finally:
-        for owner, name, raw in reversed(saved):
-            setattr(owner, name, raw)
-
-
-def pool_labels() -> List[Tuple[object, str, str]]:
-    """The pool's host steps (ops/anchor_pool.py) and the redo."""
-    from ..ops import anchor_pool as AP
-    return [(AP, "pack_chunk", "pool: pack chunk"),
-            (AP, "pool_search", "pool: K4 launch"),
-            (AP.AnchorPool, "_collect", "pool: fetch + lists"),
-            (bench, "host_search_batch", "host redo")]
-
-
-def search_labels() -> List[Tuple[object, str, str]]:
-    """The search stage's host steps (pipeline/search.py, the FM table and
-    the pool) to label during a ``search`` profile."""
-    from ..ops.fmd import DeviceFMDIndex
-    from ..pipeline import search as S
-    return [(S, "eligible_reads_bam_native", "search: open BAM"),
-            (S, "eligible_reads_bam", "search: open BAM (Python)"),
-            (S, "build_device_anchor", "search: anchor tables to card"),
-            (S, "build_device_anchor_wide", "search: wide tables to card"),
-            (DeviceFMDIndex, "from_host", "search: FM table to card"),
-            (S, "host_search_batch", "search: host redo"),
-            (S, "pack_reads", "search: pack batch"),
-            (S, "assemble", "search: assemble"),
-            (S, "write_sfs_file", "search: write SFS"),
-            (S._DeviceSearcher, "dispatch", "search: dispatch batch"),
-            (S._DeviceSearcher, "collect", "search: collect batch"),
-            *pool_labels()[:3]]
-
-
 # --------------------------------------------------------------- targets
 
 def to_dev(reads, lens, dev):
@@ -484,14 +434,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         load_kernels()
     C.sync(dev)
     warm_s = time.time() - t0
-    labels = {"search": search_labels, "pool": pool_labels}.get(
-        args.target, list)()
     # on the CPU there is no device timeline: the call runs unprofiled
     prof = torch.profiler.profile(activities=[
         ProfilerActivity.CPU, ProfilerActivity.CUDA]) if on_card \
         else contextlib.nullcontext()
     before = launches()
-    with labelled(labels), prof:
+    with prof:
         if on_card:
             # the profiler takes its activity buffers at the first CUDA
             # call it sees (~4 ms): before the window, not in it
