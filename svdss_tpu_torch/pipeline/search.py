@@ -62,8 +62,8 @@ from ..utils.log import logger
 
 MIN_READ_LEN = 100   # ping_pong.cpp:70
 _MIN_BUCKET = 512
-# the native engine's first emission cap (ops/pingpong_native.py
-# search_batch): a read past it is searched again at twice the cap
+# the native capped entry's first cap (ops/pingpong_native.py
+# search_batch): a read whose list passes it, that entry searches again
 NATIVE_FIRST_CAP = 512
 
 # the stage's merge and file writes, timed where run_search calls them
@@ -80,8 +80,9 @@ def host_search_batch(index: FMDIndex, encoded: List[np.ndarray],
     (ops/pingpong_native.py — the reference's 16-thread CPU role,
     ping_pong.cpp:329) when built, else the Python oracle. Exact either
     way; used by --no-device runs and the device-overflow fallback.
-    Counts its reads, their bases and the reads the native engine ran a
-    second time past its first cap (``redo: rerun``)."""
+    The native engine searches each read once. Counts its reads, their
+    bases and the reads whose list passes NATIVE_FIRST_CAP
+    (``redo: long lists``)."""
     with trace.span("redo: host engine"):
         key = id(index)
         nf = _NATIVE_FMD_CACHE.get(key)
@@ -91,9 +92,8 @@ def host_search_batch(index: FMDIndex, encoded: List[np.ndarray],
             _NATIVE_FMD_CACHE.clear()     # one live index at a time
             _NATIVE_FMD_CACHE[key] = nf
         if nf is not None:
-            out = nf.search_batch(encoded, overlap, threads,
-                                  cap=NATIVE_FIRST_CAP)
-            trace.count("redo: rerun",
+            out = nf.search_batch_flat(encoded, overlap, threads)
+            trace.count("redo: long lists",
                         sum(len(r) > NATIVE_FIRST_CAP for r in out))
         else:
             out = [ping_pong_search(index, e, overlap) for e in encoded]

@@ -169,7 +169,8 @@ def test_pool_spans_once_a_chunk_and_flag_counts(tables):
 
 def test_host_redo_counts_the_native_rerun(tables):
     """A read with more than the native engine's first cap of SFSs is
-    counted as rerun; a read of the genome is not."""
+    counted as a long list and, searched once by the one-pass entry, not
+    as rerun; a read of the genome is neither."""
     genome, _ = tables
     index = build_index(genome)
     enc = encode_nt6(genome["c1"])
@@ -182,10 +183,12 @@ def test_host_redo_counts_the_native_rerun(tables):
     assert len(out[0]) > search.NATIVE_FIRST_CAP >= len(out[1])
     assert counters["redo: reads"] == 2
     assert counters["redo: bases"] == len(novel) + len(plain)
-    assert counters["redo: rerun"] == 1
+    assert counters["redo: long lists"] == 1
+    assert counters.get("redo: rerun", 0) == 0
     assert spans["redo: host engine"][0] == 1
     before = trace.snapshot()
     search.host_search_batch(index, [plain], -1, 1)
     _, counters = added(before)
+    assert counters.get("redo: long lists", 0) == 0
     assert counters.get("redo: rerun", 0) == 0
     assert counters["redo: reads"] == 1
