@@ -17,7 +17,8 @@ instances:
   upper readings: it has to fail).
 
 With ``--fault`` the program runs with that fault planted
-(`perfbench/faults.py`), so its readings are the fault's. Prints one JSON
+(`perfbench/faults.py`), from set-up on, so its readings are the
+fault's. Prints one JSON
 line a seed and, last, a line with the largest program reading and the
 smallest control reading of each number.
 """
@@ -52,9 +53,10 @@ def main(argv=None) -> int:
     cell = load_cell(root, args.workload)
     harness.cache_dirs(root)
     seeds = [int(s) for s in args.seeds.split(",")]
-    setup = harness.Setup(cell, seeds[0], device, t_start)
+    # planted before set-up: the searcher binds its host engine when made
     with (faults.planted(args.fault) if args.fault
           else contextlib.nullcontext()):
+        setup = harness.Setup(cell, seeds[0], device, t_start)
         rows = readings(cell, setup, seeds, args.seconds, device)
     summary = {"workload": args.workload, "fault": args.fault,
                "seeds": len(rows),

@@ -10,15 +10,29 @@ of its own and left out of ``setup_s``, as the reference's index is built
 once and reused across samples); loading them; the sample's reads from the run's seed; the searcher
 (``pipeline.search._DeviceSearcher``: device tables laid out and
 uploaded, the engine chosen by the program's own gate); the host engine
-opened; and one batch driven through the pool from end to end, which warms
-every shape the window uses (the window replays the same reads in the same
-order).
+opened; and one batch driven through the searcher's loop from end to end,
+which warms every shape the window uses (the window replays the same reads
+in the same order). The repository's native library is loaded first in
+every set-up (built by ``io/native.py`` when the checkout lacks it, that
+build also left out of ``setup_s``): without it the host redo would run
+the Python engine, so a run that cannot load it stops with no result.
 
-The window: batches of the mix are handed to `driver.PoolDriver` in
-order, the read set replayed, for ``seconds`` of the host clock; then the
-pool is drained and the last host redo run (the reads handed in the window
-are all waited for). With ``trace`` the window and the drain run under
-torch.profiler.
+The program runs at ``Config()``, as ``cli run`` takes it, but for one
+knob of the traffic mix: ``"pool": false`` runs ``Config(pool=False)``, as
+``cli run --no-pool`` does. The configuration's optional ``"wide"`` (false
+by default) states which anchor tables ``cli run`` builds for it; a run
+whose configuration states otherwise than the program's gate is refused.
+
+The window: batches of the mix are handed, in order, to the driver of the
+loop ``run_search`` runs for the searcher (`driver.driver_for`: the pool's,
+or the bucketed one-shot loop's, whose window is one stream), the read set
+replayed, for ``seconds`` of the host clock; then the driver finishes (the
+reads handed in the window are all waited for; the one-shot loop ends its
+stream there, as ``run_search`` ends its input). With ``trace`` the window
+and the finish run under torch.profiler, and the one-shot engines count
+their work (`engines.OneShotWork`): only a traced run calls K2, K3 and K5
+with their work counters, so ``k3_roofline`` times that variant of K3,
+while the pool's K4 counts in every run.
 
 The check, after the device's peak memory is read and the program's state
 freed: the merged SFS lists of a sample of reads drawn from the seed (with
@@ -30,9 +44,11 @@ in answered.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
+import resource
 import sys
 import time
 import types
@@ -41,13 +57,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import reference, trace as tracemod, traffic
-from .driver import PoolDriver
+from . import engines, reference, trace as tracemod, traffic
+from .driver import driver_for
 from .spec import Cell
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "svdss_tpu")
 WINDOW_LABEL = "perfbench: window"
-K4 = {"K4": "anchor_pool_kernel"}
 
 
 def log(msg: str) -> None:
@@ -76,6 +91,45 @@ def cache_dirs(root: str) -> None:
 
 # ---------------------------------------------------------------- set-up
 
+def native_library() -> Optional[float]:
+    """Load the repository's native library (``io/native.py`` ``load``,
+    which builds it where the checkout lacks it): the seconds of that
+    build, or None when the library was there. Without it the run is
+    refused, before any result."""
+    from svdss_tpu_torch.io import native
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(native.__file__))))
+    there = os.path.exists(os.path.join(here, "native", "libsvdss_native.so"))
+    t0 = time.perf_counter()
+    lib = native.load()
+    if lib is None:
+        # the host redo would run the Python engine, hours a window: a
+        # different host engine from the one cli run uses
+        raise RuntimeError(
+            "the native library is absent and could not be built: the "
+            "host redo would run its Python engine, not cli run's")
+    if there:
+        return None
+    built = time.perf_counter() - t0
+    log(f"native library built in {built:.3f} s (not in setup_s)")
+    return built
+
+
+def check_wide(cell: Cell) -> None:
+    """Refuse a configuration whose stated ``wide`` (false by default)
+    differs from the tables ``cli run`` builds for it (``cli._wide_anchor``,
+    which reads the sequences' lengths alone)."""
+    from svdss_tpu_torch import cli
+    ref = cell.config["reference"]
+    stated = bool(cell.config.get("wide", False))
+    if cli._wide_anchor({ref["name"]: range(int(ref["length_bp"]))}) \
+            != stated:
+        raise RuntimeError(
+            f"the configuration states {'wide' if stated else 'narrow'} "
+            f"anchor tables, but cli run would build "
+            f"{'narrow' if stated else 'wide'} ones")
+
+
 def tables(cell: Cell, genome: np.ndarray, cfg) -> Tuple[object, object,
                                                          Optional[float]]:
     """(FMD index, host anchor tables, seconds of the build or None when
@@ -83,7 +137,7 @@ def tables(cell: Cell, genome: np.ndarray, cfg) -> Tuple[object, object,
     other as `cli run` saves them."""
     from svdss_tpu_torch import cli
     from svdss_tpu_torch.index.fmd import FMDIndex, build_index
-    from svdss_tpu_torch.io import native
+    check_wide(cell)
     d = cell.cache_dir
     os.makedirs(d, exist_ok=True)
     index_path = os.path.join(d, "index.fmd.npz")
@@ -91,14 +145,7 @@ def tables(cell: Cell, genome: np.ndarray, cfg) -> Tuple[object, object,
     built = None
     if not os.path.exists(ready):
         t0 = time.perf_counter()
-        # the native library is built at its first load by io/native.py;
-        # the index builder only looks for it, and without it falls back
-        # to the pure-Python suffix array (minutes at these sizes)
-        native.load()
         chroms = traffic.reference_chroms(cell.config, genome)
-        if cli._wide_anchor(chroms):
-            raise RuntimeError("the configuration states narrow tables, "
-                               "but cli run would build wide ones")
         index = build_index(chroms, threads=cfg.threads)
         index.save(index_path + ".tmp")
         os.replace(index_path + ".tmp.npz", index_path)
@@ -129,10 +176,10 @@ def presence(cell: Cell, genome: np.ndarray,
 
 
 class Setup:
-    """What set-up leaves for the window: the program's searcher and the
-    run's reads. The program runs at `cfg`, by default ``Config()`` as
-    ``cli run`` takes it (a test's tiny genome asks for the anchor engine
-    below its size gate)."""
+    """What set-up leaves for the window: the program's searcher, the
+    driver of its loop and the run's reads. The program runs at `cfg`, by
+    default ``Config()`` as ``cli run`` takes it (a test's tiny genome asks
+    for an engine by name), with the mix's ``pool``."""
 
     def __init__(self, cell: Cell, seed: int, device: torch.device,
                  t_start: float, cfg=None):
@@ -148,6 +195,11 @@ class Setup:
             steps[name] = now - t
             t = now
         self.cfg = Config() if cfg is None else cfg
+        if not cell.traffic.get("pool", True):
+            self.cfg = dataclasses.replace(self.cfg, pool=False)
+        # the index builder and the host engine only look for the library
+        native_s = native_library()
+        step("native")
         self.genome = traffic.reference_nt6(cell.config)
         step("reference")
         index, anchor, self.build_s = tables(cell, self.genome, self.cfg)
@@ -158,8 +210,12 @@ class Setup:
         step("reads")
         self.searcher = search._DeviceSearcher(index, self.cfg, device,
                                                anchor)
+        # the reads stand for a smoothed BAM's eligible ones: run_search
+        # sets this for such an input (the one-shot round cap)
+        self.searcher.smoothed_input = self.cfg.putative
         sync(device)
         step("searcher")
+        self.driver_cls = driver_for(self.searcher, self.cfg)
         self.table_upload_s = steps["searcher"]
         del anchor
         gc.collect()
@@ -167,10 +223,10 @@ class Setup:
         search.host_search_batch(index, self.reads.reads[:1],
                                  self.cfg.overlap, self.cfg.threads)
         step("host_engine")
-        # the kernel, the pool's copies and a full chunk's buffers: a
-        # chunk of reads without an SV (they rarely go to the host redo)
+        # the kernel, the copies and a full chunk's or batch's buffers:
+        # reads without an SV (they rarely go to the host redo)
         plain = np.flatnonzero(self.reads.sv_kind < 0)[:2 * self.cfg.lanes]
-        warm = PoolDriver(self.searcher, self.cfg, keep=lambda t: False)
+        warm = self.driver_cls(self.searcher, self.cfg, keep=lambda t: False)
         warm.hand([(self.names[i], self.reads.reads[i], 0) for i in plain])
         warm.finish()
         del warm
@@ -178,7 +234,7 @@ class Setup:
         step("warm_up")
         self.steps = steps
         self.setup_s = (time.perf_counter() - t_start
-                        - (self.build_s or 0.0))
+                        - (self.build_s or 0.0) - (native_s or 0.0))
 
     def reseed(self, seed: int) -> None:
         """Another sample's reads for the same searcher (the control's
@@ -202,8 +258,8 @@ class Setup:
 # ---------------------------------------------------------------- window
 
 class Window:
-    """One measured window of closed-loop batches, and the drain after
-    it."""
+    """One measured window of closed-loop batches, and the driver's finish
+    after it."""
 
     def __init__(self, setup: Setup, seconds: float, trace: bool,
                  keep, trace_path: str):
@@ -216,12 +272,12 @@ class Window:
             if tracing else contextlib.nullcontext())
         span = ((lambda name: torch.profiler.record_function(name))
                 if tracing else None)
-        from svdss_tpu_torch.ops import anchor_pool
-        launches0 = anchor_pool.launches
-        self.driver = d = PoolDriver(setup.searcher, setup.cfg, keep=keep,
-                                     span=span)
+        launches0 = engines.launches()
+        self.driver = d = setup.driver_cls(setup.searcher, setup.cfg,
+                                           keep=keep, span=span)
         self.batches: List[Tuple[int, int, float]] = []  # first, n, hand-off
-        with prof:
+        self.work = engines.OneShotWork(dev) if trace else None
+        with prof, (self.work or contextlib.nullcontext()):
             if tracing:
                 # the profiler takes its buffers at the first CUDA call it
                 # sees: before the window, not in it
@@ -241,28 +297,38 @@ class Window:
                     b += 1
             d.finish()
             sync(dev)
-        self.k4_launches = anchor_pool.launches - launches0
+        self.launches = {k: n - launches0[k]
+                         for k, n in engines.launches().items()}
         self.analysis = None
         if tracing:
             prof.export_chrome_trace(trace_path)
             try:
                 self.analysis = tracemod.analyse(
-                    tracemod.load(trace_path), WINDOW_LABEL, seconds, K4)
+                    tracemod.load(trace_path), WINDOW_LABEL, seconds,
+                    engines.KERNELS)
             finally:
                 os.remove(trace_path)
 
     def k4_work(self) -> Optional[Dict[str, int]]:
         """The anchor work counters (rounds, table rows, text rows,
         compared symbols) summed over the window's pools, or None when the
-        pool keeps none."""
+        run took no pool or the pool keeps none."""
         from svdss_tpu_torch.ops.anchor_device import WORK_FIELDS
+        pools = getattr(self.driver, "pools", [])
+        if not pools:
+            return None
         tot = np.zeros(len(WORK_FIELDS), dtype=np.int64)
-        for p in self.driver.pools:
+        for p in pools:
             w = getattr(p, "_work", None)
             if w is None:
                 return None
             tot += w.cpu().numpy()
         return dict(zip(WORK_FIELDS, (int(x) for x in tot)))
+
+    def one_shot(self, kernel: str) -> Optional[Dict[str, int]]:
+        """K2's, K3's or K5's work counters over the window and its finish
+        (a traced run's), or None."""
+        return None if self.work is None else self.work.sums(kernel)
 
 
 def context(setup: Setup, win: Window) -> types.SimpleNamespace:
@@ -274,20 +340,29 @@ def context(setup: Setup, win: Window) -> types.SimpleNamespace:
     hand_at = np.empty(n)
     for first, m, t in win.batches:
         hand_at[first:first + m] = t
-    anchor = setup.searcher.anchor
-    nbytes = (lambda t: None if t is None else int(t.numel() *
-                                                   t.element_size()))
+    s = setup.searcher
+    tables = engines.table_bytes(s.anchor, s.dev, s.jump_table)
+    # the one-shot engines' launches, and in a traced run their work
+    # counters and lanes: k2_*, k3_*, k5_*
+    one_shot = {}
+    for k in ("K2", "K3", "K5"):
+        one_shot[f"{k.lower()}_launches"] = win.launches[k]
+        one_shot[f"{k.lower()}_work"] = win.one_shot(k)
+        one_shot[f"{k.lower()}_lanes"] = (win.work.lanes[k]
+                                          if win.work is not None else None)
     return types.SimpleNamespace(
         seconds=win.seconds, t0=win.t0, deadline=win.deadline,
         setup_s=setup.setup_s, build_s=setup.build_s,
         table_upload_s=setup.table_upload_s,
         lengths=lengths, hand_at=hand_at,
         done_at=np.asarray(d.done_at, dtype=np.float64),
-        reads=n, redone=len(d.redone), pool_s=d.pool_s, redo_s=d.redo_s,
-        emissions=d.pairs_out, trace=win.analysis,
-        k4_work=win.k4_work(), k4_launches=win.k4_launches,
-        k4_table_bytes=nbytes(getattr(anchor, "small", None)),
-        k4_text_bytes=nbytes(getattr(anchor, "text_words", None)))
+        reads=n, redone=len(d.redone), redo_s=d.redo_s, call_s=d.call_s,
+        pool_s=getattr(d, "pool_s", None),
+        emissions=d.pairs_out, trace=win.analysis, tables_bytes=tables,
+        launches=win.launches,
+        k4_work=win.k4_work(), k4_launches=win.launches["K4"],
+        k4_table_bytes=tables.get("small"),
+        k4_text_bytes=tables.get("text_words"), **one_shot)
 
 
 # ----------------------------------------------------------------- check
@@ -384,7 +459,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         f"the last {float(np.nanmax(ctx.done_at)) - ctx.t0:.3f} s after "
         f"its start; per-read ms p50 {q[0]} p90 {q[1]} p95 {q[2]} "
         f"p99 {q[3]} over {len(lat)}; host redo {ctx.redone} reads in "
-        f"{ctx.redo_s:.3f} s; pool calls {ctx.pool_s:.3f} s; hand-offs at "
+        f"{ctx.redo_s:.3f} s; {win.driver.__class__.__name__} calls "
+        f"{ctx.call_s:.3f} s; launches {win.launches}; host peak RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}"
+        f" GiB; hand-offs at "
         + ", ".join(f"{t - ctx.t0:.3f}" for _, _, t in win.batches))
     if win.analysis is not None:
         log("trace: host spans (s) " + json.dumps(
@@ -410,6 +488,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     setup.searcher = setup.index = win.driver.searcher = None
     win.driver.pool = None
     win.driver.pools = []
+    win.work = None
     del ctx
     gc.collect()
     if device.type == "cuda":

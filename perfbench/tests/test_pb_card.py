@@ -17,7 +17,8 @@ SEEDS = "3000000101,3000000102,3000000103"
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("workload", ["chr22.hifi_sv"])
+@pytest.mark.parametrize("workload", ["chr22.hifi_sv",
+                                      "chr22.hifi_sv_nopool"])
 def test_control_fails_and_the_program_does_not(card, workload, tmp_path,
                                                 monkeypatch):
     monkeypatch.chdir(ROOT)

@@ -25,6 +25,23 @@ def test_k4_bytes_and_operations():
     assert nb3 == 150 + 34 + min(4800, 3000) + min(12800, 6000) + 56
 
 
+def test_k3_bytes_and_operations():
+    # 2 reads of 100 and 50 symbols padded to 256 lanes (254 one-symbol
+    # reads), 2 launches, 1,000 rounds, 300 table rows, 200 text rows,
+    # 5,000 compared symbols, 7 emissions
+    lane_symbols = 101 + 51 + 254 * 2
+    nbytes, ops = roofline.k3_bytes_ops(lane_symbols, 256, 2, 1000, 300,
+                                        200, 5000, 7)
+    assert nbytes == (660 + 256 * (4 + 4 + 1 + 1) + 2 * 4 + 300 * 16
+                      + 200 * 64 + 7 * 8) == 20884
+    assert ops == 1000 * 60 + 5000 * 4 == 80000
+    # each launch reads at most the whole table and text
+    nb2, _ = roofline.k3_bytes_ops(lane_symbols, 256, 2, 1000, 300, 200,
+                                   5000, 7, table_bytes=1000,
+                                   text_bytes=2000)
+    assert nb2 == 660 + 2560 + 8 + min(4800, 2000) + min(12800, 4000) + 56
+
+
 def test_bound_names_its_peak():
     t, by = roofline.bound_s(3.35e12, 1.0)
     assert (t, by) == (1.0, "bytes")

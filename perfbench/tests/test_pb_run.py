@@ -1,9 +1,11 @@
 """A whole run on the CPU at a tiny size (the harness's look for a card
-skipped): the result line's keys, `correct` false under each fault the
-cell can have, the trace arithmetic, additions as new files only, and the
-isolation from JAX and the JAX package."""
+skipped): the result line's keys, the driver the program's gate picks,
+`correct` false under each fault the cell can have, the trace arithmetic,
+additions as new files only, and the isolation from JAX and the JAX
+package."""
 
 import ast
+import dataclasses
 import json
 import os
 import shutil
@@ -14,7 +16,7 @@ import time
 import pytest
 import torch
 
-from perfbench import faults, harness, run, spec, trace
+from perfbench import driver, faults, harness, run, spec, trace
 from perfbench.tests.conftest import (ROOT, TINY_CONFIG, TINY_TRAFFIC,
                                       tiny_program, write_root)
 
@@ -22,10 +24,29 @@ CPU = torch.device("cpu")
 SEED = 2 ** 31 + 99
 
 
-def run_tiny(root, seconds=1.5, trace_=False, workload="tiny.t", seed=SEED):
+def run_tiny(root, seconds=1.5, trace_=False, workload="tiny.t", seed=SEED,
+             cfg=None):
     cell = spec.load_cell(root, workload)
     return harness.run_cell(cell, seed, seconds, trace_, CPU,
-                            time.perf_counter(), tiny_program())
+                            time.perf_counter(), cfg or tiny_program())
+
+
+TINY_WIDE = dict(TINY_CONFIG, name="tinyw", wide=True)
+
+
+@pytest.fixture(scope="module")
+def bucket_root(tmp_path_factory):
+    """Cells whose searcher leaves the pool: the mix with ``pool: false``,
+    and a configuration stated wide."""
+    return write_root(
+        tmp_path_factory.mktemp("tinyb"), [TINY_CONFIG, TINY_WIDE],
+        {"tiny": TINY_TRAFFIC, "tinynp": dict(TINY_TRAFFIC, pool=False)},
+        [{"name": "tiny.np", "config": "tiny", "traffic": "tinynp",
+          "chips": 1, "why": "test"},
+         {"name": "tiny.t", "config": "tiny", "traffic": "tiny",
+          "chips": 1, "why": "test"},
+         {"name": "tinyw.t", "config": "tinyw", "traffic": "tiny",
+          "chips": 1, "why": "test"}])
 
 
 def test_result_line(tiny_root):
@@ -54,14 +75,115 @@ def test_per_layer_line(tiny_root):
     assert set(out["metrics"]) == {"table_upload_s",
                                    "pool_call_ms_per_kread",
                                    "redo_read_pct",
+                                   "redo_read_pct.oneshot",
+                                   "redo_ms_per_read",
                                    "search_rate_kbp_per_s"}
     assert out["metrics"]["redo_read_pct"]["value"] > 0
+    assert out["metrics"]["redo_ms_per_read"]["value"] > 0
 
 
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
-def test_a_fault_makes_correct_false(tiny_root, fault):
+@pytest.mark.parametrize("case", ["pool_false", "wide", "engine_fm"])
+def test_the_gate_picks_the_bucket_driver(bucket_root, case, monkeypatch):
+    """Off the pool path the harness drives run_search's bucketed loop
+    through set-up, window and check, with no edit to the harness."""
+    workload, cfg = {
+        "pool_false": ("tiny.np", None),
+        "wide": ("tinyw.t", None),
+        "engine_fm": ("tiny.t", dataclasses.replace(tiny_program(),
+                                                    engine="fm"))}[case]
+    if case == "wide":
+        monkeypatch.setenv("SVDSS_TPU_WIDE_ANCHOR", "1")
+    made = []
+    orig = driver.BucketDriver.__init__
+
+    def spy(self, searcher, *a, **kw):
+        made.append((searcher.anchor is not None, searcher.wide,
+                     searcher.dev is not None))
+        orig(self, searcher, *a, **kw)
+    monkeypatch.setattr(driver.BucketDriver, "__init__", spy)
+    monkeypatch.setattr(driver.PoolDriver, "__init__", None)
+    out, lines = run_tiny(bucket_root, workload=workload, cfg=cfg)
+    assert out["correct"] is True and out["failed"] == 0, lines
+    assert out["attempted"] >= 16
+    # the warm-up's driver and the window's, on the engine the case asks
+    assert made == [{"pool_false": (True, False, False),
+                     "wide": (True, True, False),
+                     "engine_fm": (False, False, True)}[case]] * 2
+
+
+def test_a_configuration_stated_otherwise_is_refused(bucket_root,
+                                                     monkeypatch):
+    monkeypatch.delenv("SVDSS_TPU_WIDE_ANCHOR", raising=False)
+    with pytest.raises(RuntimeError, match="states wide"):
+        run_tiny(bucket_root, workload="tinyw.t")
+    monkeypatch.setenv("SVDSS_TPU_WIDE_ANCHOR", "1")
+    with pytest.raises(RuntimeError, match="states narrow"):
+        run_tiny(bucket_root, workload="tiny.np")
+
+
+def test_one_shot_work_is_counted_in_a_traced_window(bucket_root):
+    """A traced window hands K3 its work counters; the lists stay exact."""
+    cell = spec.load_cell(bucket_root, "tiny.np")
+    setup = harness.Setup(cell, SEED, CPU, time.perf_counter(),
+                          tiny_program())
+    n = len(setup.reads.reads)
+    sample = harness.sample_of(setup)
+    win = harness.Window(setup, 0.5, True, keep=lambda t: (t % n) in sample,
+                         trace_path=os.path.join(cell.cache_dir, "t.json"))
+    ctx = harness.context(setup, win)
+    assert ctx.k3_work["rounds"] > 0 and ctx.k3_work["symbols"] > 0
+    assert ctx.k3_lanes >= ctx.reads and ctx.k3_lanes % 256 == 0
+    assert ctx.k2_work is None and ctx.k5_work is None and \
+        ctx.k4_work is None
+    assert set(ctx.launches) == {"K2", "K3", "K4", "K5"}
+    assert ctx.tables_bytes["small"] > 0 and ctx.pool_s is None
+    want = harness.reference_lists(setup, sorted(sample), CPU)
+    assert harness.compare(setup, win, want)["mismatched_reads"] == 0
+    from svdss_tpu_torch.pipeline import search
+    assert not hasattr(search.batch_search_anchor, "__wrapped__") and \
+        search.batch_search_anchor.__module__.endswith("anchor_device")
+
+
+def test_set_up_loads_the_native_library_with_the_cache_ready(
+        tiny_root, monkeypatch):
+    """A checkout that finds its tables built still loads (and where it
+    lacks it, builds) the native library, so the host redo never runs the
+    Python engine."""
+    from svdss_tpu_torch.io import native
+    cell = spec.load_cell(tiny_root, "tiny.t")
+    harness.Setup(cell, SEED, CPU, time.perf_counter(), tiny_program())
+    assert os.path.exists(os.path.join(cell.cache_dir, "TABLES_READY"))
+    calls = []
+    orig = native.load
+    monkeypatch.setattr(native, "load",
+                        lambda: calls.append(1) or orig())
+    s = harness.Setup(cell, SEED, CPU, time.perf_counter(), tiny_program())
+    assert calls == [1] and s.build_s is None
+
+
+def test_set_up_refuses_a_run_without_the_native_library(tiny_root,
+                                                          monkeypatch):
+    """Without the native library the host redo would run the Python
+    engine: set-up stops, and the run prints no result."""
+    from svdss_tpu_torch.io import native
+    monkeypatch.setattr(native, "load", lambda: None)
+    with pytest.raises(RuntimeError, match="native library"):
+        run_tiny(tiny_root)
+
+
+RUNS = {"pool": ("tiny.t", "tiny_root"), "bucket": ("tiny.np", "bucket_root")}
+
+
+@pytest.mark.parametrize("fault,path", [
+    pytest.param(f, p, id=f if i == 0 else f"{f}-{p}")
+    for f in sorted(faults.FAULTS) for i, p in enumerate(faults.PATHS[f])])
+def test_a_fault_makes_correct_false(request, fault, path):
+    """Each fault in a run of each loop it acts on (the tiny cells redo
+    some reads on either)."""
+    workload, root = RUNS[path]
     with faults.planted(fault):
-        out, lines = run_tiny(tiny_root)
+        out, lines = run_tiny(request.getfixturevalue(root),
+                              workload=workload)
     assert out["correct"] is False
     assert lines[-1] == "correct False"
     bad = {k for k, v in out["checks"].items() if v["value"] > v["limit"]}

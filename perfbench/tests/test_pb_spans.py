@@ -36,6 +36,48 @@ def test_pool_span_readers(name, span):
     assert read(ctx(t, reads=0)) is None
 
 
+def test_one_shot_host_reader():
+    read = reader("oneshot_host_ms_per_kread")
+    t = {"host_spans": {"search: dispatch": 0.25, "search: collect": 0.75,
+                        "search: pack batch": 0.1}}
+    assert read(ctx(t)) == pytest.approx(1.0 * 1e3 / 2.0)
+    assert read(ctx({"host_spans": {"search: collect": 0.5}})) == \
+        pytest.approx(0.25 * 1e3)
+    assert read(ctx(None)) is None
+    assert read(ctx({"host_spans": {"pool: pump": 3.0}})) is None
+    assert read(ctx(t, reads=0)) is None
+
+
+def test_redo_ms_per_read_reader():
+    read = reader("redo_ms_per_read")
+    assert read(types.SimpleNamespace(redo_s=1.5, redone=600)) == \
+        pytest.approx(2.5)
+    assert read(types.SimpleNamespace(redo_s=0.0, redone=0)) is None
+
+
+def test_k3_roofline_reader():
+    import numpy as np
+    from perfbench import roofline
+    read = reader("k3_roofline")
+    work = {"rounds": 10 ** 6, "table_rows": 10 ** 5, "text_rows": 10 ** 4,
+            "symbols": 10 ** 7}
+    c = types.SimpleNamespace(
+        trace={"kernel_launches": {"K3": 4}, "kernel_s": {"K3": 0.01}},
+        k3_work=work, k3_lanes=1024, k3_launches=4, reads=1000,
+        lengths=np.full(1000, 10000), emissions=50000,
+        tables_bytes={"small": 10 ** 9, "text_words": 10 ** 8})
+    nbytes, ops = roofline.k3_bytes_ops(
+        1000 * 10001 + 24 * 2, 1024, 4, 10 ** 6, 10 ** 5, 10 ** 4, 10 ** 7,
+        50000, 10 ** 9, 10 ** 8)
+    least, _ = roofline.bound_s(nbytes, ops)
+    assert read(c) == pytest.approx(100.0 * least / 0.01)
+    assert 0 < read(c) < 100
+    c.k3_work = None
+    assert read(c) is None
+    c.k3_work, c.trace = work, None
+    assert read(c) is None
+
+
 def no_tracing(monkeypatch):
     """The program as it was before its tracing module."""
     import svdss_tpu_torch

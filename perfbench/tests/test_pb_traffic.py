@@ -1,10 +1,14 @@
 """The generator: deterministic by seed, the same sizes for every seed,
 and the mix's parameters kept."""
 
+import json
+import os
+
 import numpy as np
+import pytest
 
 from perfbench import traffic
-from perfbench.tests.conftest import TINY_CONFIG, TINY_TRAFFIC
+from perfbench.tests.conftest import ROOT, TINY_CONFIG, TINY_TRAFFIC
 
 MIX = dict(TINY_TRAFFIC, batch_reads=100, set_batches=4,
            read_length={"distribution": "lognormal", "median": 15000,
@@ -82,3 +86,36 @@ def test_reads_come_from_the_reference():
     plain = [i for i in range(40) if rs.sv_kind[i] < 0]
     r = rs.reads[plain[0]]
     assert text.find(r.tobytes()) < 0
+
+
+@pytest.mark.parametrize("mix", ["novel_ins", "hifi_sv_nopool"])
+def test_the_cells_mixes_make_every_read(mix):
+    """Every read of the plan is made (none shorter than its insertion
+    and two margins), and each batch holds the mix's carriers."""
+    t = json.load(open(os.path.join(ROOT, "perfbench", "traffic",
+                                    f"{mix}.json")))
+    lengths, kind, size = traffic.batch_plan(t)
+    margin = t["sv_margin"]
+    assert len(lengths) == t["batch_reads"] == 10000
+    assert (lengths[kind >= 0] - size[kind >= 0] - 2 * margin >= 0).all()
+    assert (kind >= 0).sum() == 3000 and (kind < 0).sum() == 7000
+    ins = size[kind >= 0]
+    if mix == "novel_ins":
+        assert ins.min() >= 1000 and ins.max() <= 6000
+        assert lengths.min() == 7000 and lengths.max() <= 25000
+        assert 0 < (lengths == 7000).sum() <= 20     # ~0.1% clipped
+        assert abs(np.median(lengths) - 15000) <= 20
+    else:
+        # hifi_sv's reads, with the pool off
+        hifi = json.load(open(os.path.join(ROOT, "perfbench", "traffic",
+                                           "hifi_sv.json")))
+        assert t["pool"] is False and "pool" not in hifi
+        for k in ("batch_reads", "set_batches", "read_length", "snv_rate",
+                  "svs", "sv_margin", "check"):
+            assert t[k] == hifi[k], k
+        assert ins.min() >= 50 and ins.max() <= 1000
+    g = traffic.reference_nt6(CONFIG)
+    rs = traffic.make_reads(g, dict(t, set_batches=1), 2 ** 33 + 5)
+    assert [len(r) for r in rs.reads] == list(rs.lengths)
+    assert all(r.dtype == np.uint8 and r.min() >= 1 and r.max() <= 4
+               for r in rs.reads)
